@@ -1,0 +1,144 @@
+"""``nmch`` CLI of the PyTorch port — the reference's single-run executable.
+
+Same flags and defaults as ``nmch_tpu/cli.py`` (the reference's
+``src/NMCH/test/nmch.cu:67-113`` surface with its actual defaults:
+NTPB=512, NB=512, N=1000, seed=1234), except:
+
+* ``--engine cuda|scan`` (default cuda: the hand-written kernel) and
+  ``--device`` (default cuda; never falls back to the CPU);
+* the method, RNG and variance-reduction options of later slices
+  (``--method em``, other ``--rng`` families, ``--rot``/``--antithetic``,
+  ``--scramble``, ``--greeks``) are parser errors that name the
+  ROADMAP.md slice that brings them.
+
+Run: ``python -m nmch_tpu_torch.cli`` (the FE main path on the card).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from .methods.fe import NMCH_FE
+from .oracle import heston_call_undiscounted
+from .params import HestonParams, SimConfig
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="nmch",
+        description="Heston Monte Carlo pricer (NMCH rebuild), PyTorch/CUDA")
+    p.add_argument("--NTPB", type=int, default=512,
+                   help="paths per block-equivalent (default: 512)")
+    p.add_argument("--NB", type=int, default=512,
+                   help="number of blocks-equivalent (default: 512)")
+    p.add_argument("--T", type=float, default=1.0, help="maturity")
+    p.add_argument("--S_0", type=float, default=1.0, help="spot (=strike)")
+    p.add_argument("--v_0", type=float, default=0.1, help="initial variance")
+    p.add_argument("--r", type=float, default=0.0, help="risk-free rate")
+    p.add_argument("--k", type=float, default=0.5, help="mean reversion")
+    p.add_argument("--rho", type=float, default=-0.7, help="correlation")
+    p.add_argument("--theta", type=float, default=0.1,
+                   help="long-term variance")
+    p.add_argument("--sigma", type=float, default=0.3, help="vol of vol")
+    p.add_argument("--N", type=int, default=1000, help="time steps")
+    p.add_argument("--seed", type=int, default=1234, help="RNG seed")
+    p.add_argument("--method", choices=["fe", "em"], default="fe",
+                   help="fe (em is not ported yet: ROADMAP.md slice 3)")
+    p.add_argument("--engine", choices=["cuda", "scan"], default="cuda",
+                   help="cuda = the hand-written kernel (default); scan = "
+                        "the plain PyTorch golden")
+    p.add_argument("--device", default="cuda",
+                   help="torch device for the paths (default: cuda)")
+    p.add_argument("--rng", choices=["philox", "threefry", "threefry4",
+                                     "tpu", "mrg32k3a", "xorwow"],
+                   default="philox",
+                   help="philox (the others are later slices)")
+    p.add_argument("--poisson-cut", type=float, default=None,
+                   help="EM only")
+    p.add_argument("--antithetic", action="store_true",
+                   help="antithetic variates (== --rot 2; ROADMAP.md "
+                        "slice 2)")
+    p.add_argument("--rot", type=int, choices=[1, 2, 4, 8], default=None,
+                   help="rotation-coupled copies per path group (only 1 "
+                        "is ported; 2, 4, 8 are ROADMAP.md slice 2)")
+    p.add_argument("--conditional", action="store_true", help="EM only")
+    p.add_argument("--scramble", choices=["auto", "lms-shift", "shift",
+                                          "owen"],
+                   default="auto",
+                   help="QMC randomization (ROADMAP.md slice 6)")
+    p.add_argument("--oracle", action="store_true",
+                   help="also print the semi-analytic Heston price")
+    p.add_argument("--greeks", action="store_true",
+                   help="sensitivities (ROADMAP.md slice 7)")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip the untimed warm-up run (timing will include "
+                        "the kernel build, like the reference's first run)")
+    p.add_argument("--json", action="store_true",
+                   help="emit one machine-readable JSON line instead of "
+                        "the human stats block")
+    return p
+
+
+def run(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.method == "em":
+        parser.error("--method em (Broadie-Kaya exact simulation) is not "
+                     "ported yet (ROADMAP.md Queue 1, slice 3: EM)")
+    if args.scramble != "auto":
+        parser.error("--scramble belongs to the QMC engine, which is not "
+                     "ported yet (ROADMAP.md Queue 1, slice 6: QMC)")
+    if args.greeks:
+        parser.error("--greeks is not ported yet (ROADMAP.md Queue 1, "
+                     "slice 7: sensitivities)")
+    if args.conditional:
+        print("note: --conditional is EM-only; ignoring", file=sys.stderr)
+    if args.poisson_cut is not None:
+        print("note: --poisson-cut is EM-only; ignoring", file=sys.stderr)
+    params = HestonParams(T=args.T, S_0=args.S_0, v_0=args.v_0, r=args.r,
+                          k=args.k, rho=args.rho, theta=args.theta,
+                          sigma=args.sigma)
+    cfg = SimConfig(NTPB=args.NTPB, NB=args.NB, N=args.N, seed=args.seed)
+    try:
+        m = NMCH_FE(cfg, params, engine=args.engine, rng=args.rng,
+                    antithetic=args.antithetic, rot=args.rot,
+                    device=args.device)
+    except (ValueError, RuntimeError) as e:
+        # unported options and a missing card surface as parser errors
+        parser.error(str(e))
+    m.init(args.seed)
+    if not args.no_warmup:
+        # discard the first run (kernel build), like exploration.cu:65-67;
+        # the warm-up draws its own epoch, so the timed run is fresh
+        m.compute()
+    res = m.compute()
+    if args.json:
+        rec = {
+            "method": args.method, "engine": args.engine,
+            "n_paths": cfg.n_paths, "N": cfg.N, "seed": args.seed,
+            "price": res.price, "price_squared": res.price_squared,
+            "err": res.err,
+            "ci_error": res.ci_error,
+            "exec_time_ms": res.exec_time_ms,
+            "init_time_ms": m.init_time_ms,
+        }
+        if args.oracle:
+            rec["heston_oracle"] = heston_call_undiscounted(params)
+        print(json.dumps(rec))
+    else:
+        m.print_stats()
+        if args.oracle:
+            print(f"Semi-analytic Heston price (undiscounted): "
+                  f"{heston_call_undiscounted(params):f}")
+    m.finalize()
+    return 0
+
+
+def main() -> None:
+    raise SystemExit(run())
+
+
+if __name__ == "__main__":
+    main()

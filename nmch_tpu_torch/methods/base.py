@@ -1,0 +1,138 @@
+"""Abstract pricing-method lifecycle — the reference's L5 layer.
+
+Mirrors ``NMCH<rnd_state>`` (``include/NMCH/methods/NMCH.hpp:28-115``)
+and ``nmch_tpu/methods/base.py``: the 5-step user API
+
+    m = NMCH_FE(cfg, params)   # declare
+    m.init(seed)               # seed the RNG streams
+    m.compute()                # one Monte Carlo pricing run
+    m.print_stats()            # human-readable stats block
+    m.finalize()               # release resources
+
+plus the parameter setters (``set_k/set_theta/set_sigma``, NMCH.hpp:76-80)
+that continue the RNG streams across compute() calls
+(exploration.cu:14-17).  ``save_state``/``load_state`` read and write the
+JSON of ``nmch_tpu``'s checkpoints, and ``print_stats`` prints the same
+bytes.
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+import json
+
+from ..oracle.black_scholes import reference_true_price
+from ..params import HestonParams, SimConfig
+from ..results import SimResult
+from ..rng.streams import PathStreams
+
+
+class NMCH(abc.ABC):
+    """Base lifecycle + parameter container (reference NMCH.hpp:28-115)."""
+
+    method_name = "?"
+
+    def __init__(self, cfg: SimConfig, params: HestonParams):
+        self.cfg = cfg
+        self.params = params
+        self.streams: PathStreams | None = None
+        self.result: SimResult | None = None
+        self.init_time_ms = float("nan")
+
+    @property
+    def K(self) -> float:
+        """ATM strike, always the current params' S_0 (NMCH.cu:7)."""
+        return self.params.K
+
+    # -- lifecycle -------------------------------------------------------
+    @abc.abstractmethod
+    def init(self, seed: int | None = None) -> None:
+        ...
+
+    @abc.abstractmethod
+    def compute(self) -> SimResult:
+        ...
+
+    def finalize(self) -> None:
+        """Release resources (the reference frees sum/states)."""
+        self.streams = None
+
+    # -- parameter setters (exploration sweep) ----------------------------
+    def set_k(self, k: float) -> None:
+        self.params = self.params.replace(k=k)
+
+    def set_theta(self, theta: float) -> None:
+        self.params = self.params.replace(theta=theta)
+
+    def set_sigma(self, sigma: float) -> None:
+        self.params = self.params.replace(sigma=sigma)
+
+    # -- results accessors (reference getter names) ------------------------
+    def get_strike_price(self) -> float:
+        return self.result.price
+
+    def get_price_squared(self) -> float:
+        return self.result.price_squared
+
+    def get_execution_time(self) -> float:
+        return self.result.exec_time_ms
+
+    def get_init_time(self) -> float:
+        return self.init_time_ms
+
+    def get_err(self) -> float:
+        """Reference CI formula, verbatim (NMCH_FE.hpp:50-55)."""
+        return self.result.err
+
+    # -- checkpoint / resume ------------------------------------------------
+    def save_state(self, path: str) -> None:
+        """Persist the resumable state (RNG streams + params) as JSON."""
+        if self.streams is None:
+            raise RuntimeError("nothing to save: call init(seed) first")
+        with open(path, "w") as f:
+            json.dump({
+                "streams": self.streams.state_dict(),
+                "params": dataclasses.asdict(self.params),
+                "cfg": dataclasses.asdict(self.cfg),
+            }, f)
+
+    def load_state(self, path: str) -> None:
+        """Resume streams where a saved run (of either package) left off:
+        the next compute() draws what the saved pricer would have."""
+        with open(path) as f:
+            d = json.load(f)
+        self.streams = PathStreams.from_state_dict(d["streams"])
+        self.params = HestonParams(**d["params"])
+        self.cfg = SimConfig(**d["cfg"])
+        if self.streams.n_paths != self.cfg.n_paths:
+            raise ValueError("inconsistent checkpoint: n_paths mismatch")
+
+    # -- output -----------------------------------------------------------
+    def print_stats(self) -> None:
+        """Stats block in the reference's exact format: base-parameter
+        dump (NMCH.cu:13-28 — it prints "S_0,K" and dt but not rho)
+        followed by the method part (NMCH_FE.cu:333-350)."""
+        p, cfg = self.params, self.cfg
+        print("Base parameters:")
+        print(f"NTPB    = {cfg.NTPB}")
+        print(f"NB      = {cfg.NB}")
+        print(f"T       = {p.T:f}")
+        print(f"S_0,K   = {p.S_0:f}")
+        print(f"v_0     = {p.v_0:f}")
+        print(f"r       = {p.r:f}")
+        print(f"k       = {p.k:f}")
+        print(f"theta   = {p.theta:f}")
+        print(f"sigma   = {p.sigma:f}")
+        print(f"N       = {cfg.N}")
+        print(f"dt      = {cfg.dt(p.T):f}")
+        print(f"METHOD: {self.method_name}")
+        r = self.result
+        print(f"The estimated price E[X] is equal to {r.price:f}")
+        print(f"The estimated E[X^2] is equal to {r.price_squared:f}")
+        # parity line: the reference's BS-with-vol-of-vol "true price"
+        print(f"The true price {reference_true_price(p.S_0, self.K, p.r, p.sigma):f}")
+        print("error associated to a confidence interval of 95% = "
+              f"{r.err:f}")
+        print(f"Execution time {r.exec_time_ms:f} ms")
+        print(f"Initialization time {self.init_time_ms:f} ms")

@@ -1,0 +1,121 @@
+"""Normal variates from raw uint32 bits: the half-circle Box–Muller path.
+
+The ``box="hc"`` construction of ``nmch_tpu/rng/normal.py`` on int64
+tensors that hold u32 words, with the same float32 constants and the
+same order of float32 operations, so that the normals are bitwise those
+of the JAX package.  Two traps of PyTorch's CPU float32 are avoided
+here:
+
+* ``torch.sqrt`` on float32 is not always correctly rounded; the square
+  root is taken in float64 and rounded once to float32, which is the
+  correctly rounded result (``sqrt_f32``).
+* An int64 -> float32 bitcast goes through int32, so words at or above
+  2^31 are first moved into the signed range (``f32_from_u32``).
+
+Only the ``"hc"`` box is ported; the ``"turns"`` construction arrives
+with the FE variants (ROADMAP.md Queue 1, slice 2).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# The coefficient tables of nmch_tpu/rng/normal.py, as float32 values.
+# sin(z) = z * P(z^2) on |z| <= pi/2, max abs err 5.9e-7
+_SIN_HC = tuple(float(np.float32(c)) for c in
+                (0.99999662, -0.16664828, 8.3063252e-3, -1.8363653e-4))
+# cos(z) = Q(z^2) on |z| <= pi/2, max abs err 4.7e-8
+_COS_HC = tuple(float(np.float32(c)) for c in
+                (0.99999995, -0.49999905, 4.1663585e-2, -1.38537043e-3,
+                 2.31539307e-5))
+# -2*ln(1+t) = t * M(t) on t in [0,1), relative err 1.9e-7
+_NEG2LOG = tuple(float(np.float32(-2.0 * c)) for c in
+                 (0.99999981, -0.49997405, 0.33275475, -0.24495434,
+                  0.17745159, -0.1076805, 0.04408875, -0.00853896))
+_NEG2LN2 = float(np.float32(-2.0 * np.log(2.0)))       # -1.3862944
+_C254LN2 = float(np.float32(-127.0 * _NEG2LN2))        # cancels at u=1
+_PI = float(np.float32(np.pi))
+_PI_1P5 = float(np.float32(1.5 * np.pi))
+_MAGIC = 12582912.0                                    # 1.5 * 2^23
+
+_SIGN = 0x80000000
+_MANT = 0x007FFFFF
+_ONE = 0x3F800000
+
+
+def f32_from_u32(x: torch.Tensor) -> torch.Tensor:
+    """Reinterpret u32 words (held in int64) as float32."""
+    signed = torch.where(x >= 2 ** 31, x - 2 ** 32, x)
+    return signed.to(torch.int32).view(torch.float32)
+
+
+def u32_from_f32(f: torch.Tensor) -> torch.Tensor:
+    """Reinterpret float32 as u32 words held in int64."""
+    return f.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (IEEE ``sqrtf``)."""
+    return torch.sqrt(x.double()).float()
+
+
+def uniform_open01(bits: torch.Tensor) -> torch.Tensor:
+    """u32 bits -> float32 uniform in (0, 1]: the top 23 bits become the
+    mantissa of a float in [1, 2), subtracted from 2."""
+    return 2.0 - f32_from_u32((bits >> 9) | _ONE)
+
+
+def neg2log(u: torch.Tensor) -> torch.Tensor:
+    """-2*ln(u) for float32 u in (0, 1], from u's own bit pattern:
+    u = m * 2^(e-127), the biased exponent converted to float by the
+    1.5*2^23 magic number and ln m by a degree-8 polynomial."""
+    b = u32_from_f32(u)
+    ebf = f32_from_u32((b >> 23) | 0x4B400000) - _MAGIC
+    m = f32_from_u32((b & _MANT) | _ONE)
+    t = m - 1.0
+    p = _NEG2LOG[-1]
+    for c in _NEG2LOG[-2::-1]:
+        p = p * t + c
+    q = ebf * _NEG2LN2 + _C254LN2 + t * p
+    # polynomial + rounding residue can dip ~1 ulp below zero at u ~ 1
+    return torch.clamp_min(q, 0.0)
+
+
+def _halfcircle_pair(w_r: torch.Tensor, f: torch.Tensor,
+                     sign_bits: torch.Tensor):
+    """Shared half-circle Box–Muller core: radius word w_r, phase carrier
+    f in [1, 2), and the pair's random sign in bit 31 of sign_bits."""
+    u = uniform_open01(w_r)
+    q = neg2log(u)
+    R = f32_from_u32(u32_from_f32(sqrt_f32(q)) ^ sign_bits)
+    z = f * _PI - _PI_1P5
+    z2 = z * z
+    s = _SIN_HC[-1]
+    for c in _SIN_HC[-2::-1]:
+        s = s * z2 + c
+    s = s * z
+    c_ = _COS_HC[-1]
+    for c in _COS_HC[-2::-1]:
+        c_ = c_ * z2 + c
+    return R * c_, R * s
+
+
+def normal_pair_hc(w_r: torch.Tensor, w_p: torch.Tensor):
+    """Two u32 words -> two iid N(0,1) float32 values: radius from w_r's
+    top 23 bits, phase on a half-circle from w_p's low 23 bits, sign
+    from w_p's bit 31 (``nmch_tpu.rng.normal.normal_pair_hc``)."""
+    f = f32_from_u32((w_p & _MANT) | _ONE)
+    return _halfcircle_pair(w_r, f, w_p & _SIGN)
+
+
+def normal4_from_bits(x0, x1, x2, x3, box: str = "hc"):
+    """Four u32 words -> four N(0,1) float32 values via two Box–Muller
+    pairs: one counter block feeds two time steps."""
+    if box != "hc":
+        raise ValueError(f"box={box!r} is not ported; only 'hc' is (the "
+                         f"'turns' construction comes with the FE "
+                         f"variants, ROADMAP.md Queue 1, slice 2)")
+    g0, g1 = normal_pair_hc(x0, x1)
+    g2, g3 = normal_pair_hc(x2, x3)
+    return g0, g1, g2, g3

@@ -1,0 +1,72 @@
+"""CLI of the PyTorch port against nmch_tpu's, and the no-jax import rule."""
+
+import json
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from nmch_tpu.cli import run as jax_cli_run
+from nmch_tpu_torch.cli import build_parser, run as cli_run
+
+torch.set_num_threads(2)
+
+SMALL = ["--NTPB", "256", "--NB", "4", "--N", "30", "--seed", "11"]
+
+
+def _json_run(fn, argv, capsys) -> dict:
+    assert fn(argv) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_json_matches_nmch_tpu_scan(capsys):
+    got = _json_run(cli_run, ["--json", "--engine", "scan",
+                              "--device", "cpu", *SMALL], capsys)
+    want = _json_run(jax_cli_run, ["--json", "--engine", "scan", *SMALL],
+                     capsys)
+    assert set(got) == set(want)
+    assert got["engine"] == "scan" and got["n_paths"] == 1024
+    assert abs(got["price"] - want["price"]) <= 1e-5 * abs(want["price"])
+
+
+def test_stats_block_and_oracle_json(capsys):
+    assert cli_run(["--device", "cpu", "--no-warmup", *SMALL]) == 0
+    assert "METHOD: FORWARD-EULER" in capsys.readouterr().out
+    rec = _json_run(cli_run, ["--json", "--oracle", "--device", "cpu",
+                              *SMALL], capsys)
+    assert abs(rec["price"] - rec["heston_oracle"]) <= \
+        3 * rec["ci_error"] + 2e-3
+
+
+def test_defaults_match_nmch_tpu():
+    a = build_parser().parse_args([])
+    assert (a.NTPB, a.NB, a.N, a.seed) == (512, 512, 1000, 1234)
+    assert (a.T, a.S_0, a.v_0, a.r) == (1.0, 1.0, 0.1, 0.0)
+    assert (a.k, a.rho, a.theta, a.sigma) == (0.5, -0.7, 0.1, 0.3)
+    assert (a.method, a.engine, a.device, a.rng) == \
+        ("fe", "cuda", "cuda", "philox")
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--method", "em"], "slice 3"),
+    (["--rng", "threefry4"], "slice 2"),
+    (["--rot", "4"], "slice 2"),
+    (["--antithetic"], "slice 2"),
+    (["--scramble", "owen"], "slice 6"),
+    (["--greeks"], "slice 7"),
+    (["--engine", "pallas"], "invalid choice"),
+])
+def test_unported_options_are_parser_errors(argv, match, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli_run([*argv, "--device", "cpu", *SMALL])
+    assert e.value.code == 2
+    assert match in capsys.readouterr().err
+
+
+def test_package_and_cli_import_no_jax():
+    code = ("import sys, nmch_tpu_torch, nmch_tpu_torch.cli, "
+            "nmch_tpu_torch.ops.fe_cuda, nmch_tpu_torch._build; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'nmch_tpu' not in sys.modules, 'nmch_tpu imported'")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -1,0 +1,197 @@
+"""Method layer of the PyTorch port against nmch_tpu's (lifecycle, stats
+block, typed errors, stream continuation, checkpoints, oracles)."""
+
+import dataclasses
+import io
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+import nmch_tpu
+from nmch_tpu.oracle import black_scholes as j_bs
+from nmch_tpu.oracle import heston as j_heston
+from nmch_tpu import results as j_results
+import nmch_tpu_torch
+from nmch_tpu_torch import HestonParams, NMCH_FE, SimConfig, SimResult
+from nmch_tpu_torch.oracle import black_scholes as t_bs
+from nmch_tpu_torch.oracle import heston as t_heston
+from nmch_tpu_torch.rng.streams import PathStreams
+
+torch.set_num_threads(2)
+
+CFG = SimConfig(NTPB=256, NB=4, N=40)          # 1024 paths
+
+
+def _pricer(**kw):
+    return NMCH_FE(CFG, HestonParams(), **{"engine": "scan",
+                                           "device": "cpu", **kw})
+
+
+def test_lifecycle():
+    m = _pricer()
+    m.init(1234)
+    res = m.compute()
+    assert 0.05 < res.price < 0.2
+    assert res.price_squared > res.price ** 2
+    assert m.get_strike_price() == res.price
+    assert m.get_price_squared() == res.price_squared
+    assert m.get_err() == res.err > 0
+    assert m.get_execution_time() > 0 and m.get_init_time() >= 0
+    m.finalize()
+    assert m.streams is None
+
+
+def test_print_stats_byte_identical_to_nmch_tpu():
+    res = SimResult(price=0.1234567, price_squared=0.0456789, n_paths=4096,
+                    exec_time_ms=12.345678, init_time_ms=0.012345)
+    params = dict(T=0.75, S_0=1.1, v_0=0.09, r=0.02, k=1.5, rho=-0.5,
+                  theta=0.08, sigma=0.4)
+    cfg = dict(NTPB=128, NB=32, N=250, seed=9)
+    outs = []
+    for pkg, m in ((nmch_tpu_torch, _pricer()),
+                   (nmch_tpu, nmch_tpu.NMCH_FE(
+                       nmch_tpu.SimConfig(), nmch_tpu.HestonParams(),
+                       engine="scan"))):
+        m.params = pkg.HestonParams(**params)
+        m.cfg = pkg.SimConfig(**cfg)
+        m.result = pkg.SimResult(**dataclasses.asdict(res))
+        m.init_time_ms = res.init_time_ms
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            m.print_stats()
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1]
+    assert outs[0].startswith("Base parameters:\nNTPB    = 128\n")
+
+
+def test_compute_before_init_raises():
+    with pytest.raises(RuntimeError, match="init"):
+        _pricer().compute()
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"rng": "threefry4"}, "slice 2"),
+    ({"rng": "threefry"}, "slice 2"),
+    ({"rng": "tpu"}, "slice 2"),
+    ({"rng": "mrg32k3a"}, "slice 5"),
+    ({"rng": "xorwow"}, "slice 5"),
+    ({"rng": "bogus"}, "unknown rng"),
+    ({"rot": 4}, "slice 2"),
+    ({"rot": 3}, "rot must be"),
+    ({"antithetic": True}, "slice 2"),
+    ({"engine": "qmc"}, "slice 6"),
+    ({"engine": "pallas"}, "unknown engine"),
+    ({"device": "meta"}, "neither cpu nor cuda"),
+])
+def test_unsupported_options_raise_value_error(kw, match):
+    with pytest.raises(ValueError, match=match):
+        _pricer(**kw)
+
+
+def test_cuda_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        NMCH_FE(CFG, HestonParams(), engine="cuda", device="cuda")
+    with pytest.raises(RuntimeError):
+        NMCH_FE(CFG, HestonParams())          # the defaults ask for a card
+
+
+def test_setters_continue_streams_and_reinit_reproduces():
+    m = _pricer()
+    m.init(1234)
+    p1 = m.compute().price
+    p2 = m.compute().price
+    assert p1 != p2                       # the stream continued
+    m.set_theta(0.2)
+    m.set_sigma(0.5)
+    m.set_k(2.0)
+    assert (m.params.theta, m.params.sigma, m.params.k) == (0.2, 0.5, 2.0)
+    assert m.streams.epoch == 2
+    assert np.isfinite(m.compute().price)
+    m2 = _pricer()
+    m2.init(1234)
+    assert m2.compute().price == p1
+
+
+def test_cuda_engine_on_cpu_equals_scan_engine():
+    prices = []
+    for engine in ("cuda", "scan"):
+        m = _pricer(engine=engine)
+        m.init(5)
+        prices.append((m.compute().price, m.compute().price_squared))
+    assert prices[0] == prices[1]
+
+
+def test_params_and_config_cross_package():
+    jp = nmch_tpu.HestonParams(k=1.3, rho=0.2)
+    tp_ = HestonParams.from_array(np.asarray(jp.as_array()))
+    np.testing.assert_array_equal(tp_.as_array(), np.asarray(jp.as_array()))
+    assert tp_.as_array().dtype == np.float32
+    assert tp_.as_tensor("cpu").dtype == torch.float32
+    assert dataclasses.asdict(HestonParams()) == \
+        dataclasses.asdict(nmch_tpu.HestonParams())
+    assert dataclasses.asdict(SimConfig()) == \
+        dataclasses.asdict(nmch_tpu.SimConfig())
+    assert SimConfig.from_n_paths(4096, NTPB=256).n_paths == 4096
+
+
+def test_streams_state_dict_roundtrip():
+    s = PathStreams(seed=2**40 + 3, n_paths=1024)
+    s.next_epoch()
+    s2 = PathStreams.from_state_dict(s.state_dict())
+    assert s2 == s and s2.next_epoch() == 1
+    assert tuple(map(int, s2.key_words)) == (3, 256)
+
+
+@pytest.mark.parametrize("mean,mean_sq,n", [
+    (0.1197, 0.0454, 1 << 18), (0.5, 0.2, 2), (0.3, 0.01, 100), (1.0, 1.0, 1),
+])
+def test_ci_formulas_equal_nmch_tpu(mean, mean_sq, n):
+    for name in ("reference_err", "correct_ci_error"):
+        a = getattr(nmch_tpu_torch, name)(mean, mean_sq, n)
+        b = getattr(j_results, name)(mean, mean_sq, n)
+        assert a == b or (np.isnan(a) and np.isnan(b))
+
+
+def test_oracles_equal_nmch_tpu():
+    # one parameter set: each heston_call solves a 2000-node Gauss-Legendre
+    # eigenproblem, which is slow under the parallel test run
+    kw = {"k": 2.0, "theta": 0.05, "sigma": 0.6, "rho": 0.3, "r": 0.05,
+          "T": 0.5}
+    tp_, jp = HestonParams(**kw), nmch_tpu.HestonParams(**kw)
+    assert t_heston.heston_call_undiscounted(tp_) == \
+        j_heston.heston_call_undiscounted(jp)
+    assert t_bs.reference_true_price(tp_.S_0, tp_.K, tp_.r, tp_.sigma) == \
+        j_bs.reference_true_price(jp.S_0, jp.K, jp.r, jp.sigma)
+
+
+def test_checkpoint_from_nmch_tpu_resumes_the_stream(tmp_path):
+    """A checkpoint nmch_tpu writes after one compute() loads into the
+    port, whose next price agrees with nmch_tpu's next price."""
+    jcfg = nmch_tpu.SimConfig(NTPB=256, NB=4, N=40, seed=77)
+    jm = nmch_tpu.NMCH_FE(jcfg, nmch_tpu.HestonParams(theta=0.12),
+                          engine="scan")
+    jm.init(77)
+    jm.compute()
+    path = tmp_path / "ckpt.json"
+    jm.save_state(str(path))
+    want = jm.compute().price
+
+    m = _pricer()
+    m.load_state(str(path))
+    assert m.streams.epoch == 1 and m.params.theta == 0.12
+    got = m.compute().price
+    assert abs(got - want) <= 1e-5 * abs(want)
+
+    # and the port's own checkpoint round-trips exactly
+    m.save_state(str(path))
+    m2 = _pricer()
+    m2.load_state(str(path))
+    assert m2.compute().price == m.compute().price
+
+
+def test_save_before_init_raises(tmp_path):
+    with pytest.raises(RuntimeError):
+        _pricer().save_state(str(tmp_path / "x.json"))

@@ -1,0 +1,102 @@
+"""hc Box–Muller normals of the PyTorch port, bitwise against nmch_tpu's,
+and the CUDA kernel's float32 literal table against nmch_tpu's constants."""
+
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from nmch_tpu.rng import normal as jn
+from nmch_tpu_torch.rng import normal as tn
+
+torch.set_num_threads(2)
+
+EDGE_WORDS = np.array([0, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32)
+KERNEL_SRC = (pathlib.Path(__file__).resolve().parents[1]
+              / "nmch_tpu_torch" / "csrc" / "fe_philox.cu")
+
+
+def _words(seed: int, n: int = 1 << 14) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 2**32, size=(4, n), dtype=np.uint64).astype(np.uint32)
+    # every edge word in every slot, against every other edge word
+    grid = np.stack(np.meshgrid(*[EDGE_WORDS] * 4, indexing="ij")).reshape(4, -1)
+    w[:, :grid.shape[1]] = grid
+    return w
+
+
+def _bits(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_normal4_from_bits_bitwise(seed):
+    w = _words(seed)
+    want = jn.normal4_from_bits(*(jnp.asarray(x) for x in w))
+    got = tn.normal4_from_bits(*(torch.from_numpy(x.astype(np.int64))
+                                 for x in w))
+    for a, b in zip(want, got):
+        assert b.dtype == torch.float32
+        np.testing.assert_array_equal(_bits(a), _bits(b.numpy()))
+
+
+def test_uniform_and_neg2log_bitwise():
+    w = _words(2)[0]
+    u_j = jn.uniform_open01(jnp.asarray(w))
+    u_t = tn.uniform_open01(torch.from_numpy(w.astype(np.int64)))
+    np.testing.assert_array_equal(_bits(u_j), _bits(u_t.numpy()))
+    np.testing.assert_array_equal(_bits(jn.neg2log(u_j)),
+                                  _bits(tn.neg2log(u_t).numpy()))
+
+
+def test_sqrt_f32_correctly_rounded():
+    x = np.random.default_rng(3).random(1 << 14, dtype=np.float32) * 40
+    np.testing.assert_array_equal(
+        _bits(np.sqrt(x)), _bits(tn.sqrt_f32(torch.from_numpy(x)).numpy()))
+
+
+def test_bitcasts_roundtrip_all_sign_classes():
+    w = np.concatenate([EDGE_WORDS, np.array([0x3F800000, 0xBF800000],
+                                             np.uint32)])
+    t = torch.from_numpy(w.astype(np.int64))
+    f = tn.f32_from_u32(t)
+    np.testing.assert_array_equal(_bits(f.numpy()), w)
+    assert torch.equal(tn.u32_from_f32(f), t)
+
+
+def test_other_boxes_refused():
+    z = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="slice 2"):
+        tn.normal4_from_bits(z, z, z, z, box="turns")
+
+
+def _kernel_literals() -> dict:
+    src = KERNEL_SRC.read_text()
+    out = {}
+    for name in ("kSinHc", "kCosHc", "kNeg2Log", "kNeg2Ln2", "kC254Ln2",
+                 "kPi", "kPi1p5", "kMagic"):
+        m = re.search(rf"\b{name}\b(?:\[\d+\])?\s*=\s*(\{{[^}}]*\}}|[^;]+);",
+                      src)
+        assert m, f"{name} not found in {KERNEL_SRC.name}"
+        lits = re.findall(r"[-+]?[0-9.]+(?:e[-+]?\d+)?f", m.group(1))
+        out[name] = [np.float32(float(x[:-1])) for x in lits]
+    return out
+
+
+def test_kernel_literal_table_matches_nmch_tpu():
+    """The kernel's constants, each literal rounded to float32, equal the
+    JAX package's (the constant check that runs without nvcc)."""
+    lit = _kernel_literals()
+    want = {
+        "kSinHc": jn._SIN_HC, "kCosHc": jn._COS_HC, "kNeg2Log": jn._NEG2LOG,
+        "kNeg2Ln2": (jn._NEG2LN2,), "kC254Ln2": (jn._C254LN2,),
+        "kPi": (np.float32(np.pi),), "kPi1p5": (np.float32(1.5 * np.pi),),
+        "kMagic": (np.float32(12582912.0),),
+    }
+    for name, vals in want.items():
+        assert len(lit[name]) == len(vals), name
+        np.testing.assert_array_equal(_bits(lit[name]), _bits(vals),
+                                      err_msg=name)
