@@ -11,17 +11,20 @@ imports torch, numpy and scipy, never jax.
     m.compute()
     m.print_stats()
     m.finalize()
+
+``NMCH_EM`` (the Broadie–Kaya exact scheme) has the same lifecycle.
 """
 
 from .params import HestonParams, SimConfig, DEFAULT_PARAMS, DEFAULT_CONFIG
 from .results import SimResult, reference_err, correct_ci_error
 from .methods.base import NMCH
 from .methods.fe import NMCH_FE
+from .methods.em import NMCH_EM
 
 __version__ = "0.1.0"
 
 __all__ = [
     "HestonParams", "SimConfig", "DEFAULT_PARAMS", "DEFAULT_CONFIG",
     "SimResult", "reference_err", "correct_ci_error",
-    "NMCH", "NMCH_FE", "__version__",
+    "NMCH", "NMCH_FE", "NMCH_EM", "__version__",
 ]

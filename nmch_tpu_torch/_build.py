@@ -2,9 +2,11 @@
 
 The sources in ``csrc/`` are compiled at first use into
 ``build/nmch_tpu_torch/<hash>/libnmch_tpu_torch.so`` beside the package,
-where ``<hash>`` covers the sources and the flags, so an edit rebuilds
-and an unchanged tree reuses the library.  The library has a plain C
-interface (no PyTorch headers), which keeps the build to seconds.
+where ``<hash>`` covers the sources, their headers and the flags, so an
+edit rebuilds and an unchanged tree reuses the library.  Each source is
+compiled by its own nvcc process, all started together, and the objects
+are linked into one library.  The library has a plain C interface (no
+PyTorch headers), which keeps the build to seconds.
 
 ``-fmad=false`` keeps nvcc from contracting a*b+c into one rounding:
 every float operation then matches the plain PyTorch version's.  A
@@ -25,12 +27,13 @@ import tempfile
 import time
 
 _PKG = pathlib.Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "fe_philox.cu",)
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "fe_philox.cu", CSRC / "em.cu")
+HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_ROOT = _PKG.parent / "build" / "nmch_tpu_torch"
 LIB_NAME = "libnmch_tpu_torch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +55,7 @@ def find_nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -65,18 +68,30 @@ def build_library() -> BuildInfo:
     if lib.is_file():
         return BuildInfo(lib, 0.0, "")
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)   # atomic: a concurrent build sees all or none
-    return BuildInfo(lib, seconds, proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(outs)
+        for cmd, p, out in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                                   f"{' '.join(cmd)}\n{out}")
+        so = os.path.join(tmp, LIB_NAME)
+        cmd = [nvcc, "-shared", "-o", so, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(so, lib)   # atomic: a concurrent build sees all or none
+    return BuildInfo(lib, time.perf_counter() - t0, log)
 
 
 @functools.cache
@@ -90,6 +105,12 @@ def load_library() -> tuple[ctypes.CDLL, BuildInfo]:
         + [ctypes.c_int64, ctypes.c_int64]
         + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     lib.nmch_fe_philox_moments.restype = ctypes.c_int
+    lib.nmch_em_moments.argtypes = (
+        [ctypes.POINTER(ctypes.c_float)]
+        + [ctypes.c_uint32] * 4
+        + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 5)
+    lib.nmch_em_moments.restype = ctypes.c_int
     lib.nmch_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nmch_cuda_error_string.restype = ctypes.c_char_p
     return lib, info

@@ -4,14 +4,16 @@ Same flags and defaults as ``nmch_tpu/cli.py`` (the reference's
 ``src/NMCH/test/nmch.cu:67-113`` surface with its actual defaults:
 NTPB=512, NB=512, N=1000, seed=1234), except:
 
-* ``--engine cuda|scan`` (default cuda: the hand-written kernel) and
+* ``--engine cuda|scan`` (default cuda: the hand-written kernels) and
   ``--device`` (default cuda; never falls back to the CPU);
-* the method, RNG and variance-reduction options of later slices
-  (``--method em``, other ``--rng`` families, ``--rot``/``--antithetic``,
-  ``--scramble``, ``--greeks``) are parser errors that name the
-  ROADMAP.md slice that brings them.
+* the RNG and variance-reduction options of later slices (FE's
+  ``--rng`` families other than philox, ``--rot``/``--antithetic``,
+  EM's mrg32k3a/xorwow, ``--scramble``, ``--greeks``) are parser errors
+  that name the ROADMAP.md slice that brings them.
 
-Run: ``python -m nmch_tpu_torch.cli`` (the FE main path on the card).
+Run: ``python -m nmch_tpu_torch.cli`` (the FE main path on the card) or
+``python -m nmch_tpu_torch.cli --method em`` (the exact scheme, with
+``--rng philox|threefry4``, ``--conditional`` and ``--poisson-cut``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import argparse
 import json
 import sys
 
+from .methods.em import NMCH_EM
 from .methods.fe import NMCH_FE
 from .oracle import heston_call_undiscounted
 from .params import HestonParams, SimConfig
@@ -45,7 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--N", type=int, default=1000, help="time steps")
     p.add_argument("--seed", type=int, default=1234, help="RNG seed")
     p.add_argument("--method", choices=["fe", "em"], default="fe",
-                   help="fe (em is not ported yet: ROADMAP.md slice 3)")
+                   help="fe = Forward Euler (default); em = Broadie-Kaya "
+                        "exact simulation")
     p.add_argument("--engine", choices=["cuda", "scan"], default="cuda",
                    help="cuda = the hand-written kernel (default); scan = "
                         "the plain PyTorch golden")
@@ -54,16 +58,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rng", choices=["philox", "threefry", "threefry4",
                                      "tpu", "mrg32k3a", "xorwow"],
                    default="philox",
-                   help="philox (the others are later slices)")
+                   help="philox; EM also takes threefry4 (the others are "
+                        "later slices)")
     p.add_argument("--poisson-cut", type=float, default=None,
-                   help="EM only")
+                   help="EM only: lambda at and above which the Poisson "
+                        "mixture index uses the one-round normal "
+                        "approximation (default 128; 4000 = curand's "
+                        "switch)")
     p.add_argument("--antithetic", action="store_true",
                    help="antithetic variates (== --rot 2; ROADMAP.md "
-                        "slice 2)")
+                        "slice 3)")
     p.add_argument("--rot", type=int, choices=[1, 2, 4, 8], default=None,
                    help="rotation-coupled copies per path group (only 1 "
-                        "is ported; 2, 4, 8 are ROADMAP.md slice 2)")
-    p.add_argument("--conditional", action="store_true", help="EM only")
+                        "is ported; 2, 4, 8 are ROADMAP.md slice 3)")
+    p.add_argument("--conditional", action="store_true",
+                   help="EM only: price with the exact conditional "
+                        "expectation of the payoff given the variance path")
     p.add_argument("--scramble", choices=["auto", "lms-shift", "shift",
                                           "owen"],
                    default="auto",
@@ -84,27 +94,38 @@ def build_parser() -> argparse.ArgumentParser:
 def run(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.method == "em":
-        parser.error("--method em (Broadie-Kaya exact simulation) is not "
-                     "ported yet (ROADMAP.md Queue 1, slice 3: EM)")
     if args.scramble != "auto":
         parser.error("--scramble belongs to the QMC engine, which is not "
                      "ported yet (ROADMAP.md Queue 1, slice 6: QMC)")
     if args.greeks:
         parser.error("--greeks is not ported yet (ROADMAP.md Queue 1, "
                      "slice 7: sensitivities)")
-    if args.conditional:
-        print("note: --conditional is EM-only; ignoring", file=sys.stderr)
-    if args.poisson_cut is not None:
-        print("note: --poisson-cut is EM-only; ignoring", file=sys.stderr)
     params = HestonParams(T=args.T, S_0=args.S_0, v_0=args.v_0, r=args.r,
                           k=args.k, rho=args.rho, theta=args.theta,
                           sigma=args.sigma)
     cfg = SimConfig(NTPB=args.NTPB, NB=args.NB, N=args.N, seed=args.seed)
+    if args.method == "fe":
+        if args.conditional:
+            print("note: --conditional is EM-only; ignoring",
+                  file=sys.stderr)
+        if args.poisson_cut is not None:
+            print("note: --poisson-cut is EM-only; ignoring",
+                  file=sys.stderr)
+        cls = NMCH_FE
+        kwargs = {"antithetic": args.antithetic, "rot": args.rot}
+    else:
+        if args.rng in ("threefry", "tpu"):
+            parser.error(f"--method em does not support --rng {args.rng} "
+                         f"(choose philox/threefry4)")
+        if args.antithetic or args.rot:
+            print("note: --antithetic/--rot are FE-only; ignoring",
+                  file=sys.stderr)
+        cls = NMCH_EM
+        kwargs = {"conditional": args.conditional,
+                  "poisson_cut": args.poisson_cut}
     try:
-        m = NMCH_FE(cfg, params, engine=args.engine, rng=args.rng,
-                    antithetic=args.antithetic, rot=args.rot,
-                    device=args.device)
+        m = cls(cfg, params, engine=args.engine, rng=args.rng,
+                device=args.device, **kwargs)
     except (ValueError, RuntimeError) as e:
         # unported options and a missing card surface as parser errors
         parser.error(str(e))

@@ -1,0 +1,92 @@
+// Counter-based generators of the port's streams, one 4-word block per
+// call, bitwise nmch_tpu_torch/rng/philox.py and rng/threefry4.py (and so
+// nmch_tpu's): counter (block, epoch, path_lo, path_hi), key from the seed.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace nmch {
+namespace {
+
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
+constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
+constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
+constexpr uint32_t kThreefryParity = 0x1BD11BDAu;
+
+// Philox4x32-10: counter (c0..c3) in, 4 words out in place.
+__device__ __forceinline__ void philox4x32_10(uint32_t& c0, uint32_t& c1,
+                                              uint32_t& c2, uint32_t& c3,
+                                              uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const uint32_t hi0 = __umulhi(kPhiloxM0, c0);
+    const uint32_t lo0 = kPhiloxM0 * c0;
+    const uint32_t hi1 = __umulhi(kPhiloxM1, c2);
+    const uint32_t lo1 = kPhiloxM1 * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += kPhiloxW0;
+    k1 += kPhiloxW1;
+  }
+}
+
+// One Threefry-4x32 round: two mixes (rotations R0, R1) and the
+// Threefish-256 permutation (swap x1 <-> x3).
+template <int R0, int R1>
+__device__ __forceinline__ void threefry_round(uint32_t& x0, uint32_t& x1,
+                                               uint32_t& x2, uint32_t& x3) {
+  x0 += x1;
+  x1 = ((x1 << R0) | (x1 >> (32 - R0))) ^ x0;
+  x2 += x3;
+  x3 = ((x3 << R1) | (x3 >> (32 - R1))) ^ x2;
+  const uint32_t t = x1;
+  x1 = x3;
+  x3 = t;
+}
+
+// Key injection s (after every fourth round): x_i += ks[(s + i) % 5],
+// x3 += s.
+template <int S>
+__device__ __forceinline__ void threefry_inject(uint32_t& x0, uint32_t& x1,
+                                                uint32_t& x2, uint32_t& x3,
+                                                const uint32_t ks[5]) {
+  x0 += ks[S % 5];
+  x1 += ks[(S + 1) % 5];
+  x2 += ks[(S + 2) % 5];
+  x3 += ks[(S + 3) % 5] + (uint32_t)S;
+}
+
+// Threefry-4x32, 12 rounds, key (k0, k1, 0, 0): counter in, 4 words out in
+// place (rotation table R_32x4 of Random123's threefry.h).
+__device__ __forceinline__ void threefry4x32_12(uint32_t& x0, uint32_t& x1,
+                                                uint32_t& x2, uint32_t& x3,
+                                                uint32_t k0, uint32_t k1) {
+  const uint32_t ks[5] = {k0, k1, 0u, 0u, k0 ^ k1 ^ kThreefryParity};
+  x0 += ks[0];
+  x1 += ks[1];
+  x2 += ks[2];
+  x3 += ks[3];
+  threefry_round<10, 26>(x0, x1, x2, x3);
+  threefry_round<11, 21>(x0, x1, x2, x3);
+  threefry_round<13, 27>(x0, x1, x2, x3);
+  threefry_round<23, 5>(x0, x1, x2, x3);
+  threefry_inject<1>(x0, x1, x2, x3, ks);
+  threefry_round<6, 20>(x0, x1, x2, x3);
+  threefry_round<17, 11>(x0, x1, x2, x3);
+  threefry_round<25, 10>(x0, x1, x2, x3);
+  threefry_round<18, 20>(x0, x1, x2, x3);
+  threefry_inject<2>(x0, x1, x2, x3, ks);
+  threefry_round<10, 26>(x0, x1, x2, x3);
+  threefry_round<11, 21>(x0, x1, x2, x3);
+  threefry_round<13, 27>(x0, x1, x2, x3);
+  threefry_round<23, 5>(x0, x1, x2, x3);
+  threefry_inject<3>(x0, x1, x2, x3, ks);
+}
+
+}  // namespace
+}  // namespace nmch

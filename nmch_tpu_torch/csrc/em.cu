@@ -1,0 +1,106 @@
+// Broadie-Kaya exact-scheme (EM) Heston paths on Hopper (sm_90a): one thread
+// per path runs N exact variance transitions (Poisson and Gamma rejection
+// samplers on its own counter stream, em_path.cuh), draws or conditions the
+// terminal price, and the payoffs go into the deterministic two-pass float64
+// sum of reduce.cuh.
+//
+// Replaces nmch_tpu/ops/em_pallas.py::_em_kernel (the kernel behind
+// em_moments_pallas, em_pallas.py:117), in each of its variants: rng philox
+// or threefry4 and `conditional` off or on are template parameters (four
+// kernels); poisson_cut, the parameters, the keys, the epoch and base_path
+// are runtime arguments, so a sweep never rebuilds.
+//
+// What bounds it on an H100: instruction issue, under divergence. A step
+// costs a Poisson draw (one round on the normal branch above the cut, a
+// geometric number of PTRS rounds below it, Knuth rounds below lam = 10)
+// and one or more Marsaglia-Tsang rounds; each round is a Philox (10 rounds,
+// 4 integer multiplies each) or Threefry (12 rounds of add/rotate/xor) block,
+// a Box-Muller normal with a logf, and the acceptance test's logf/log1pf.
+// Lanes of a warp that accept in different rounds wait for the slowest, so
+// a warp runs the maximum of its 32 lanes' round counts. The design keeps a
+// path's whole state (v, vI, counter, constants) in registers, touches
+// memory only to write the payoff (and, on request, the per-path payoff and
+// counter for checks), and leaves divergence as it is: reducing it (e.g.
+// regrouping lanes by round count) is work for a later change.
+//
+// Numerics: see em_path.cuh. Built with -fmad=false, a path's counter and
+// payoff equal the plain PyTorch version's (ops/em.py) on the card; the
+// moments differ from it only by the order of the float64 sums.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "em_path.cuh"
+#include "reduce.cuh"
+
+namespace {
+
+using nmch::EmArgs;
+using nmch::kPathThreads;
+
+template <int R, bool kConditional>
+__global__ void __launch_bounds__(kPathThreads)
+    em_paths(EmArgs a, double* __restrict__ partials,
+             float* __restrict__ payoff_out, uint32_t* __restrict__ ctr_out) {
+  const uint32_t idx = blockIdx.x * kPathThreads + threadIdx.x;
+  uint32_t ctr;
+  const float payoff =
+      nmch::em_path<R, kConditional>(a, a.base_path + idx, ctr);
+  if (payoff_out != nullptr) {
+    payoff_out[idx] = payoff;
+    ctr_out[idx] = ctr;
+  }
+  nmch::block_sum_to_partials(payoff, partials);
+}
+
+template <int R, bool kConditional>
+cudaError_t launch_em_paths(const EmArgs& a, int64_t n_blocks,
+                            double* partials, float* payoff_out,
+                            uint32_t* ctr_out, cudaStream_t st) {
+  em_paths<R, kConditional><<<(unsigned)n_blocks, kPathThreads, 0, st>>>(
+      a, partials, payoff_out, ctr_out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// (E[X], E[X^2]) of n_paths EM paths into out[0..1] (float64, device).
+// consts: the 13 float32 values of ops/em.py::EmConsts, on the host.
+// rng: 0 = philox, 1 = threefry4; conditional: 0 or 1.
+// partials: float64[2 * n_paths / 128] scratch on the device. payoff_out
+// (float32[n_paths]) and ctr_out (uint32[n_paths]) are both null or both
+// device arrays that receive each path's payoff and final counter.
+// Launches on `stream` and does not synchronise. Returns the cudaError_t of
+// the launches (0 on success); nothing is launched for invalid arguments.
+extern "C" int nmch_em_moments(const float* consts, uint32_t k0, uint32_t k1,
+                               uint32_t epoch, uint32_t base_path, int64_t N,
+                               int64_t n_paths, int rng, int conditional,
+                               double* partials, double* out,
+                               float* payoff_out, uint32_t* ctr_out,
+                               void* stream) {
+  if (N < 1 || N > (int64_t(1) << 30) || n_paths < kPathThreads ||
+      n_paths % kPathThreads != 0 || n_paths > (int64_t(1) << 32) ||
+      (rng != nmch::kEmPhilox && rng != nmch::kEmThreefry4) ||
+      (conditional != 0 && conditional != 1) ||
+      ((payoff_out == nullptr) != (ctr_out == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  static_assert(nmch::kEmConsts == 13, "EmArgs takes 13 constants");
+  const float* c = consts;
+  const EmArgs a{c[0], c[1], c[2], c[3],  c[4],  c[5],  c[6],
+                 c[7], c[8], c[9], c[10], c[11], c[12],
+                 k0,   k1,   epoch, base_path, (int)N};
+  const int64_t n_blocks = n_paths / kPathThreads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using Launch = cudaError_t (*)(const EmArgs&, int64_t, double*, float*,
+                                 uint32_t*, cudaStream_t);
+  constexpr Launch kLaunch[2][2] = {
+      {launch_em_paths<nmch::kEmPhilox, false>,
+       launch_em_paths<nmch::kEmPhilox, true>},
+      {launch_em_paths<nmch::kEmThreefry4, false>,
+       launch_em_paths<nmch::kEmThreefry4, true>}};
+  const cudaError_t err = kLaunch[rng][conditional](a, n_blocks, partials,
+                                                    payoff_out, ctr_out, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)nmch::launch_sum_partials(partials, n_blocks, n_paths, out, st);
+}

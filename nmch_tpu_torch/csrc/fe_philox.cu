@@ -12,8 +12,8 @@
 // 70 FP32 operations of polynomials and steps plus three IEEE square roots.
 // What the design does about it: one thread per path with everything in
 // registers for all N steps, no shared or global memory inside the time
-// loop, and the cross-path sum left to the end (a shared-memory tree per
-// block, then one block over the per-block partials).
+// loop, and the cross-path sum left to the end (reduce.cuh: a shared-memory
+// tree per block, then one block over the per-block partials).
 //
 // Numerics: built with -fmad=false and without --use_fast_math, every float
 // operation is the one the plain PyTorch version (nmch_tpu_torch/ops/fe.py)
@@ -25,15 +25,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "counter_rng.cuh"
+#include "reduce.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;        // paths per block (n_paths % 128 == 0)
-constexpr int kReduceThreads = 256;  // threads of the single partials block
-
-constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
-constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
-constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
-constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
+using nmch::kPathThreads;
+using nmch::philox4x32_10;
 
 // float32 constants of nmch_tpu/rng/normal.py; tests/test_torch_normal.py
 // parses this table and holds each literal to the JAX package's value.
@@ -61,24 +59,6 @@ struct FeArgs {
 struct FeConsts {
   float A, B, C, rho_sd, rhoc_sd, one_rdt;
 };
-
-__device__ __forceinline__ void philox4x32_10(uint32_t& c0, uint32_t& c1,
-                                              uint32_t& c2, uint32_t& c3,
-                                              uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c0);
-    const uint32_t lo0 = kPhiloxM0 * c0;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c2);
-    const uint32_t lo1 = kPhiloxM1 * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += kPhiloxW0;
-    k1 += kPhiloxW1;
-  }
-}
 
 // -2 ln(u) for u in (0, 1], from u's bits (rng/normal.py::neg2log)
 __device__ __forceinline__ float neg2log(float u) {
@@ -123,7 +103,7 @@ __device__ __forceinline__ void fe_step(float& S, float& v, float g1, float g2,
   v = fabsf(c.B * v + c.A + sqv * (c.C * g1));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPathThreads)
     fe_philox_paths(FeArgs a, double* __restrict__ partials) {
   // ops/fe.py::fe_terminal's constants, in its order
   const float dt = a.T / (float)a.N;
@@ -137,7 +117,8 @@ __global__ void __launch_bounds__(kThreads)
   c.rhoc_sd = sqrt_rho_c * sqrt_dt;
   c.one_rdt = 1.0f + a.r * dt;
 
-  const uint32_t path = a.base_path + blockIdx.x * kThreads + threadIdx.x;
+  const uint32_t path =
+      a.base_path + blockIdx.x * kPathThreads + threadIdx.x;
   float S = a.S_0;
   float v = a.v_0;
   const uint32_t N = (uint32_t)a.N;
@@ -152,55 +133,7 @@ __global__ void __launch_bounds__(kThreads)
     if (2 * j + 1 < N) fe_step(S, v, g2, g3, c);
   }
 
-  const float payoff = fmaxf(S - a.S_0, 0.0f);
-  __shared__ double sh_sum[kThreads];
-  __shared__ double sh_sq[kThreads];
-  const int t = threadIdx.x;
-  sh_sum[t] = (double)payoff;
-  sh_sq[t] = (double)(payoff * payoff);
-  __syncthreads();
-#pragma unroll
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      sh_sum[t] += sh_sum[t + s];
-      sh_sq[t] += sh_sq[t + s];
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-    partials[2 * blockIdx.x] = sh_sum[0];
-    partials[2 * blockIdx.x + 1] = sh_sq[0];
-  }
-}
-
-// One block: thread t sums partials t, t + 256, ... in order, then a fixed
-// tree; out = (sum / n_paths, sum_sq / n_paths).
-__global__ void __launch_bounds__(kReduceThreads)
-    fe_sum_partials(const double* __restrict__ partials, int64_t n_blocks,
-                    int64_t n_paths, double* __restrict__ out) {
-  __shared__ double sh_sum[kReduceThreads];
-  __shared__ double sh_sq[kReduceThreads];
-  const int t = threadIdx.x;
-  double s = 0.0, s2 = 0.0;
-  for (int64_t i = t; i < n_blocks; i += kReduceThreads) {
-    s += partials[2 * i];
-    s2 += partials[2 * i + 1];
-  }
-  sh_sum[t] = s;
-  sh_sq[t] = s2;
-  __syncthreads();
-#pragma unroll
-  for (int w = kReduceThreads / 2; w > 0; w >>= 1) {
-    if (t < w) {
-      sh_sum[t] += sh_sum[t + w];
-      sh_sq[t] += sh_sq[t + w];
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-    out[0] = sh_sum[0] / (double)n_paths;
-    out[1] = sh_sq[0] / (double)n_paths;
-  }
+  nmch::block_sum_to_partials(fmaxf(S - a.S_0, 0.0f), partials);
 }
 
 }  // namespace
@@ -216,20 +149,18 @@ extern "C" int nmch_fe_philox_moments(float T, float S_0, float v_0, float r,
                                       int64_t N, int64_t n_paths,
                                       double* partials, double* out,
                                       void* stream) {
-  if (N < 1 || N > (int64_t(1) << 30) || n_paths < kThreads ||
-      n_paths % kThreads != 0 || n_paths > (int64_t(1) << 32)) {
+  if (N < 1 || N > (int64_t(1) << 30) || n_paths < kPathThreads ||
+      n_paths % kPathThreads != 0 || n_paths > (int64_t(1) << 32)) {
     return (int)cudaErrorInvalidValue;
   }
   const FeArgs a{T, S_0, v_0, r, k, rho, theta, sigma,
                  k0, k1, epoch, base_path, (int)N};
-  const int64_t n_blocks = n_paths / kThreads;
+  const int64_t n_blocks = n_paths / kPathThreads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fe_philox_paths<<<(unsigned)n_blocks, kThreads, 0, st>>>(a, partials);
+  fe_philox_paths<<<(unsigned)n_blocks, kPathThreads, 0, st>>>(a, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fe_sum_partials<<<1, kReduceThreads, 0, st>>>(partials, n_blocks, n_paths,
-                                                out);
-  return (int)cudaGetLastError();
+  return (int)nmch::launch_sum_partials(partials, n_blocks, n_paths, out, st);
 }
 
 extern "C" const char* nmch_cuda_error_string(int code) {

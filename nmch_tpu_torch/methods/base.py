@@ -22,10 +22,26 @@ import abc
 import dataclasses
 import json
 
+import torch
+
 from ..oracle.black_scholes import reference_true_price
 from ..params import HestonParams, SimConfig
 from ..results import SimResult
 from ..rng.streams import PathStreams
+from ..utils.timing import Timer
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device of a pricer: "cuda" needs a card and never falls
+    back to the CPU."""
+    device = torch.device(device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"device {device} is neither cpu nor cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but torch.cuda.is_available() "
+                           "is False; pass device='cpu' to price on "
+                           "the CPU")
+    return device
 
 
 class NMCH(abc.ABC):
@@ -33,9 +49,10 @@ class NMCH(abc.ABC):
 
     method_name = "?"
 
-    def __init__(self, cfg: SimConfig, params: HestonParams):
+    def __init__(self, cfg: SimConfig, params: HestonParams, device):
         self.cfg = cfg
         self.params = params
+        self.device = resolve_device(device)
         self.streams: PathStreams | None = None
         self.result: SimResult | None = None
         self.init_time_ms = float("nan")
@@ -46,13 +63,34 @@ class NMCH(abc.ABC):
         return self.params.K
 
     # -- lifecycle -------------------------------------------------------
-    @abc.abstractmethod
     def init(self, seed: int | None = None) -> None:
-        ...
+        """Create the per-path streams (reference init(seed),
+        NMCH_FE.cu:368-386).  Counter-based RNG needs no state arrays, so
+        this is O(1); the kernels' one-off build lands in the first
+        compute() instead, which the CLI discards as a warm-up."""
+        seed = self.cfg.seed if seed is None else seed
+        with Timer() as t:
+            self.streams = PathStreams(seed=seed, n_paths=self.cfg.n_paths)
+        self.init_time_ms = t.ms
 
     @abc.abstractmethod
+    def _moments(self, epoch: int):
+        """(E[X], E[X^2]) of one pricing run at ``epoch``, as 0-dim
+        tensors on ``self.device``."""
+
     def compute(self) -> SimResult:
-        ...
+        """One Monte Carlo pricing run; each call draws a fresh epoch."""
+        if self.streams is None:
+            raise RuntimeError("call init(seed) before compute()")
+        epoch = self.streams.next_epoch()
+        with Timer(self.device) as t:
+            m, m2 = self._moments(epoch)
+            m, m2 = torch.stack([m, m2]).tolist()
+        self.result = SimResult(price=m, price_squared=m2,
+                                n_paths=self.cfg.n_paths,
+                                exec_time_ms=t.ms,
+                                init_time_ms=self.init_time_ms)
+        return self.result
 
     def finalize(self) -> None:
         """Release resources (the reference frees sum/states)."""

@@ -1,0 +1,94 @@
+"""EM moments through the hand-written CUDA kernel ``csrc/em.cu``.
+
+The counterpart of ``nmch_tpu/ops/em_pallas.py::em_moments_pallas``
+(rng philox or threefry4, ``conditional``, ``poisson_cut``).  On a CUDA
+device the wrapper launches the kernel (one thread per path, then one
+block that sums the per-block partials) or raises; on the CPU it runs the
+plain version, ``ops/em.py::em_payoffs``, which computes the same payoffs
+operation for operation.  Parameters, ``poisson_cut`` and streams are
+runtime arguments, so a parameter sweep never rebuilds the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .._build import load_library
+from .em import em_consts, em_payoffs
+from .fe import LANES, moments_f64, path_index_grid
+from .fe_cuda import check_args
+
+RNGS = ("philox", "threefry4")
+
+
+def variant_name(rng: str, conditional: bool) -> str:
+    """The name under which a kernel variant is counted and reported."""
+    return f"em_{rng}" + ("_cond" if conditional else "")
+
+
+def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
+                    n_paths: int, device, rng: str = "philox",
+                    conditional: bool = False,
+                    poisson_cut: float | None = None,
+                    per_path: bool = False):
+    """(E[X], E[X^2]) over n_paths EM paths, as float64 0-dim tensors on
+    ``device``.
+
+    params: float32 tensor (8,) on the CPU, (T, S_0, v_0, r, k, rho,
+    theta, sigma); its loop constants (``em_consts``) go to the kernel by
+    argument.  seed_words: the (k0, k1) u32 key pair; epoch and base_path:
+    u32 stream coordinates (path p draws from counters (j, epoch,
+    base_path + p, 0), j = 0, 1, ...).  poisson_cut None means 4000, the
+    ops layer's default.  per_path=True also returns each path's payoff
+    (float32) and final counter (int64), in (n_paths/128, 128) layout.
+    Each launch adds one to ``em_moments_cuda.launches`` and to
+    ``em_moments_cuda.variant_launches[variant_name(rng, conditional)]``.
+    """
+    device, N, n_paths, k0, k1, epoch, base_path = check_args(
+        params, seed_words, epoch, base_path, N, n_paths, device)
+    if rng not in RNGS:
+        raise ValueError(f"rng={rng!r}: the EM kernel takes 'philox' or "
+                         f"'threefry4'")
+    if device.type == "cpu":
+        payoff, ctr = em_payoffs(params, N, path_index_grid(n_paths,
+                                                            base_path),
+                                 epoch, k0, k1, rng=rng,
+                                 conditional=conditional,
+                                 poisson_cut=poisson_cut)
+        m, m2 = moments_f64(payoff)
+        return (m, m2, payoff, ctr) if per_path else (m, m2)
+
+    lib, _ = load_library()
+    consts = (ctypes.c_float * 13)(*em_consts(params, N, poisson_cut))
+    partials = torch.empty(2 * (n_paths // LANES), dtype=torch.float64,
+                           device=device)
+    out = torch.empty(2, dtype=torch.float64, device=device)
+    payoff = ctr = None
+    if per_path:
+        payoff = torch.empty(n_paths // LANES, LANES, dtype=torch.float32,
+                             device=device)
+        ctr = torch.empty(n_paths // LANES, LANES, dtype=torch.int32,
+                          device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.nmch_em_moments(
+            consts, k0, k1, epoch, base_path, N, n_paths, RNGS.index(rng),
+            int(bool(conditional)), partials.data_ptr(), out.data_ptr(),
+            None if payoff is None else payoff.data_ptr(),
+            None if ctr is None else ctr.data_ptr(), stream)
+    name = variant_name(rng, conditional)
+    if rc != 0:
+        msg = lib.nmch_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+    em_moments_cuda.launches += 1
+    em_moments_cuda.variant_launches[name] = \
+        em_moments_cuda.variant_launches.get(name, 0) + 1
+    if per_path:
+        return out[0], out[1], payoff, ctr.to(torch.int64) & 0xFFFFFFFF
+    return out[0], out[1]
+
+
+em_moments_cuda.launches = 0
+em_moments_cuda.variant_launches = {}

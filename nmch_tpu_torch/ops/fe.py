@@ -69,7 +69,7 @@ def make_draw4(rng: str, path_lo, path_hi, epoch, k0, k1):
     if rng != "philox":
         raise ValueError(f"rng={rng!r} is not ported; only 'philox' is "
                          f"(threefry/threefry4 come with the FE variants, "
-                         f"ROADMAP.md Queue 1, slice 2)")
+                         f"ROADMAP.md Queue 1, slice 3)")
     return lambda j: philox4x32(j, epoch, path_lo, path_hi, k0, k1)
 
 
@@ -103,13 +103,17 @@ def fe_terminal(params_vec, N: int, path_idx, epoch, k0, k1,
     return S, v
 
 
-def fe_moments_scan(params_vec, N: int, path_idx, epoch, k0, k1,
-                    rng: str = "philox"):
-    """Golden engine: (E[X], E[X^2]) with X = (S_T - K)^+, K = S_0, as
-    float64 0-dim tensors (payoff and payoff^2 in float32, summed in
-    float64)."""
-    S_T, _ = fe_terminal(params_vec, N, path_idx, epoch, k0, k1, rng=rng)
-    payoff = torch.clamp_min(S_T - params_vec[1], 0.0)
+def moments_f64(payoff: torch.Tensor):
+    """(E[X], E[X^2]) as float64 0-dim tensors: payoff and payoff^2 in
+    float32, summed in float64, as the kernels' reduction is."""
     n = payoff.numel()
     return (payoff.double().sum() / n,
             (payoff * payoff).double().sum() / n)
+
+
+def fe_moments_scan(params_vec, N: int, path_idx, epoch, k0, k1,
+                    rng: str = "philox"):
+    """Golden engine: (E[X], E[X^2]) with X = (S_T - K)^+, K = S_0, as
+    float64 0-dim tensors (``moments_f64``)."""
+    S_T, _ = fe_terminal(params_vec, N, path_idx, epoch, k0, k1, rng=rng)
+    return moments_f64(torch.clamp_min(S_T - params_vec[1], 0.0))

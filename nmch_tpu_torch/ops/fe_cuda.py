@@ -26,18 +26,12 @@ def _u32(name: str, x) -> int:
     return x
 
 
-def fe_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
-                    n_paths: int, device):
-    """(E[X], E[X^2]) over n_paths FE paths, as float64 0-dim tensors on
-    ``device``.
-
-    params: float32 tensor (8,) on the CPU, (T, S_0, v_0, r, k, rho,
-    theta, sigma); the kernel receives the values by argument.
-    seed_words: the (k0, k1) u32 key pair; epoch and base_path: u32
-    stream coordinates (path p draws from counter (j, epoch,
-    base_path + p, 0)).  Each launch adds one to
-    ``fe_moments_cuda.launches``."""
+def check_args(params, seed_words, epoch, base_path, N, n_paths, device):
+    """Validate the arguments of a kernel wrapper; returns (device, N,
+    n_paths, k0, k1, epoch, base_path), the integers as Python ints."""
     device = torch.device(device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"device {device} is neither cpu nor cuda")
     N, n_paths = int(N), int(n_paths)
     if not isinstance(params, torch.Tensor) or params.dtype != torch.float32 \
             or params.shape != (8,) or params.device.type != "cpu":
@@ -49,14 +43,26 @@ def fe_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
         raise ValueError(f"n_paths={n_paths} must be a positive multiple "
                          f"of {LANES}, at most 2^32")
     k0, k1 = (_u32("seed word", w) for w in seed_words)
-    epoch = _u32("epoch", epoch)
-    base_path = _u32("base_path", base_path)
+    return (device, N, n_paths, k0, k1, _u32("epoch", epoch),
+            _u32("base_path", base_path))
 
+
+def fe_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
+                    n_paths: int, device):
+    """(E[X], E[X^2]) over n_paths FE paths, as float64 0-dim tensors on
+    ``device``.
+
+    params: float32 tensor (8,) on the CPU, (T, S_0, v_0, r, k, rho,
+    theta, sigma); the kernel receives the values by argument.
+    seed_words: the (k0, k1) u32 key pair; epoch and base_path: u32
+    stream coordinates (path p draws from counter (j, epoch,
+    base_path + p, 0)).  Each launch adds one to
+    ``fe_moments_cuda.launches``."""
+    device, N, n_paths, k0, k1, epoch, base_path = check_args(
+        params, seed_words, epoch, base_path, N, n_paths, device)
     if device.type == "cpu":
         pidx = path_index_grid(n_paths, base_path, device)
         return fe_moments_scan(params, N, pidx, epoch, k0, k1)
-    if device.type != "cuda":
-        raise ValueError(f"device {device} is neither cpu nor cuda")
 
     lib, _ = load_library()
     partials = torch.empty(2 * (n_paths // LANES), dtype=torch.float64,

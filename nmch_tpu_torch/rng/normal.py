@@ -1,10 +1,11 @@
-"""Normal variates from raw uint32 bits: the half-circle Box–Muller path.
+"""Normal variates from raw uint32 bits.
 
 The ``box="hc"`` construction of ``nmch_tpu/rng/normal.py`` on int64
 tensors that hold u32 words, with the same float32 constants and the
 same order of float32 operations, so that the normals are bitwise those
-of the JAX package.  Two traps of PyTorch's CPU float32 are avoided
-here:
+of the JAX package; and the turns-based ``boxmuller`` (with its
+``sincos_2pi`` polynomials) that the EM samplers draw from.  Two traps
+of PyTorch's CPU float32 are avoided here:
 
 * ``torch.sqrt`` on float32 is not always correctly rounded; the square
   root is taken in float64 and rounded once to float32, which is the
@@ -12,8 +13,11 @@ here:
 * An int64 -> float32 bitcast goes through int32, so words at or above
   2^31 are first moved into the signed range (``f32_from_u32``).
 
-Only the ``"hc"`` box is ported; the ``"turns"`` construction arrives
-with the FE variants (ROADMAP.md Queue 1, slice 2).
+``boxmuller`` takes ``torch.log`` of its radius uniform, which is not
+bitwise XLA's ``log`` on the CPU (about 95% of float32 inputs agree);
+on a CUDA tensor it is libdevice's ``logf``, as in the EM kernel.
+``normal4_from_bits`` still refuses the ``"turns"`` box: FE's turns
+variant comes with the FE variants (ROADMAP.md Queue 1, slice 3).
 """
 
 from __future__ import annotations
@@ -66,6 +70,55 @@ def uniform_open01(bits: torch.Tensor) -> torch.Tensor:
     return 2.0 - f32_from_u32((bits >> 9) | _ONE)
 
 
+def uniform_halfopen01(bits: torch.Tensor) -> torch.Tensor:
+    """u32 bits -> float32 uniform in [0, 1)."""
+    return f32_from_u32((bits >> 9) | _ONE) - 1.0
+
+
+# sincos_2pi's Taylor coefficients in r, as nmch_tpu/rng/normal.py writes
+# them (cos((pi/2) r) through r^8, sin((pi/2) r)/r through r^7); each
+# polynomial step is `c * r2 + coef` in that order
+_SC_COS = tuple(float(np.float32(c)) for c in
+                (9.1926027483e-4, -2.0863480763e-2, 2.5366950790e-1,
+                 -1.2337005501, 1.0))
+_SC_SIN = tuple(float(np.float32(c)) for c in
+                (-4.6817541353e-3, 7.9692626247e-2, -6.4596409750e-1,
+                 1.5707963268))
+
+
+def sincos_2pi(u: torch.Tensor):
+    """(cos(2 pi u), sin(2 pi u)) for float32 u in [0, 1): exact quadrant
+    reduction u = (q + r)/4, r in [-1/2, 1/2], polynomials in r and a
+    quadrant swap/sign fixup (``nmch_tpu.rng.normal.sincos_2pi``)."""
+    x = u * 4.0
+    q = torch.floor(x + 0.5)
+    r = x - q
+    qi = q.to(torch.int32)
+    r2 = r * r
+    c = _SC_COS[0]
+    for coef in _SC_COS[1:]:
+        c = c * r2 + coef
+    s = _SC_SIN[0]
+    for coef in _SC_SIN[1:]:
+        s = s * r2 + coef
+    s = s * r
+    odd = (qi & 1) != 0
+    cos_base = torch.where(odd, s, c)
+    sin_base = torch.where(odd, c, s)
+    cos_neg = ((qi + 1) & 2) != 0
+    sin_neg = (qi & 2) != 0
+    return (torch.where(cos_neg, -cos_base, cos_base),
+            torch.where(sin_neg, -sin_base, sin_base))
+
+
+def boxmuller(u1: torch.Tensor, u2: torch.Tensor):
+    """Two (0, 1] uniforms -> two N(0,1) float32 values:
+    r = sqrt(-2 ln u1), (r cos, r sin)(2 pi u2)."""
+    r = sqrt_f32(-2.0 * torch.log(u1))
+    c, s = sincos_2pi(u2)
+    return r * c, r * s
+
+
 def neg2log(u: torch.Tensor) -> torch.Tensor:
     """-2*ln(u) for float32 u in (0, 1], from u's own bit pattern:
     u = m * 2^(e-127), the biased exponent converted to float by the
@@ -115,7 +168,7 @@ def normal4_from_bits(x0, x1, x2, x3, box: str = "hc"):
     if box != "hc":
         raise ValueError(f"box={box!r} is not ported; only 'hc' is (the "
                          f"'turns' construction comes with the FE "
-                         f"variants, ROADMAP.md Queue 1, slice 2)")
+                         f"variants, ROADMAP.md Queue 1, slice 3)")
     g0, g1 = normal_pair_hc(x0, x1)
     g2, g3 = normal_pair_hc(x2, x3)
     return g0, g1, g2, g3

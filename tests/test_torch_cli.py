@@ -1,4 +1,5 @@
-"""CLI of the PyTorch port against nmch_tpu's, and the no-jax import rule."""
+"""CLI of the PyTorch port against nmch_tpu's (FE and EM), and the no-jax
+import rule."""
 
 import json
 import subprocess
@@ -8,11 +9,13 @@ import pytest
 import torch
 
 from nmch_tpu.cli import run as jax_cli_run
+from nmch_tpu_torch import NMCH_EM, cli
 from nmch_tpu_torch.cli import build_parser, run as cli_run
 
 torch.set_num_threads(2)
 
 SMALL = ["--NTPB", "256", "--NB", "4", "--N", "30", "--seed", "11"]
+SMALL_EM = ["--NTPB", "256", "--NB", "4", "--N", "16", "--seed", "11"]
 
 
 def _json_run(fn, argv, capsys) -> dict:
@@ -49,10 +52,12 @@ def test_defaults_match_nmch_tpu():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--method", "em"], "slice 3"),
-    (["--rng", "threefry4"], "slice 2"),
-    (["--rot", "4"], "slice 2"),
-    (["--antithetic"], "slice 2"),
+    (["--method", "em", "--rng", "xorwow"], "slice 5"),
+    (["--method", "em", "--rng", "tpu"], "does not support"),
+    (["--method", "em", "--greeks"], "slice 7"),
+    (["--rng", "threefry4"], "slice 3"),
+    (["--rot", "4"], "slice 3"),
+    (["--antithetic"], "slice 3"),
     (["--scramble", "owen"], "slice 6"),
     (["--greeks"], "slice 7"),
     (["--engine", "pallas"], "invalid choice"),
@@ -64,9 +69,48 @@ def test_unported_options_are_parser_errors(argv, match, capsys):
     assert match in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("extra", [
+    [], ["--rng", "threefry4"], ["--conditional"], ["--poisson-cut", "24"],
+])
+def test_em_json_matches_nmch_tpu_scan(extra, capsys):
+    argv = ["--method", "em", "--json", "--engine", "scan", *SMALL_EM,
+            *extra]
+    got = _json_run(cli_run, [*argv, "--device", "cpu"], capsys)
+    want = _json_run(jax_cli_run, argv, capsys)
+    assert set(got) == set(want)
+    assert got["method"] == "em" and got["n_paths"] == 1024
+    assert abs(got["price"] - want["price"]) <= 1e-5 * abs(want["price"])
+
+
+def test_em_stats_block_oracle_and_default_poisson_cut(capsys, monkeypatch):
+    assert cli_run(["--method", "em", "--device", "cpu", "--no-warmup",
+                    *SMALL_EM]) == 0
+    assert "METHOD: EXACT-METHOD" in capsys.readouterr().out
+    rec = _json_run(cli_run, ["--method", "em", "--json", "--oracle",
+                              "--device", "cpu", "--conditional",
+                              *SMALL_EM], capsys)
+    assert abs(rec["price"] - rec["heston_oracle"]) <= \
+        3 * rec["ci_error"] + 2e-3
+    # --poisson-cut unset resolves to the method layer's 128
+    made = []
+
+    def spy(*a, **kw):
+        made.append(NMCH_EM(*a, **kw))
+        return made[-1]
+    monkeypatch.setattr(cli, "NMCH_EM", spy)
+    for extra in ([], ["--poisson-cut", "4000"]):
+        _json_run(cli_run, ["--method", "em", "--json", "--device", "cpu",
+                            "--no-warmup", *SMALL_EM, *extra], capsys)
+    assert [m.poisson_cut for m in made] == [128.0, 4000.0]
+    assert build_parser().parse_args([]).poisson_cut is None
+
+
 def test_package_and_cli_import_no_jax():
     code = ("import sys, nmch_tpu_torch, nmch_tpu_torch.cli, "
-            "nmch_tpu_torch.ops.fe_cuda, nmch_tpu_torch._build; "
+            "nmch_tpu_torch.ops.fe_cuda, nmch_tpu_torch.ops.em, "
+            "nmch_tpu_torch.ops.em_cuda, nmch_tpu_torch.ops.sampling, "
+            "nmch_tpu_torch.methods.em, nmch_tpu_torch.rng.threefry4, "
+            "nmch_tpu_torch._build; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'nmch_tpu' not in sys.modules, 'nmch_tpu imported'")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

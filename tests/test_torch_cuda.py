@@ -1,4 +1,4 @@
-"""The CUDA kernel of the PyTorch port on a card (marker ``cuda``).
+"""The CUDA kernels of the PyTorch port on a card (marker ``cuda``).
 
 These tests skip without a CUDA card.  They import neither jax nor
 nmch_tpu, so they run on a GPU machine without JAX:
@@ -9,7 +9,9 @@ nmch_tpu, so they run on a GPU machine without JAX:
 import pytest
 import torch
 
-from nmch_tpu_torch import HestonParams, NMCH_FE, SimConfig
+from nmch_tpu_torch import HestonParams, NMCH_EM, NMCH_FE, SimConfig
+from nmch_tpu_torch.ops.em import em_payoffs, moments_f64
+from nmch_tpu_torch.ops.em_cuda import em_moments_cuda
 from nmch_tpu_torch.ops.fe import fe_moments_scan, path_index_grid
 from nmch_tpu_torch.ops.fe_cuda import fe_moments_cuda
 from nmch_tpu_torch.oracle import heston_call_undiscounted
@@ -43,6 +45,44 @@ def test_kernel_matches_plain_and_is_deterministic(dev, N, epoch, base):
 
 def test_main_path_prices_within_oracle_bar(dev):
     m = NMCH_FE(SimConfig(NB=128, N=200), HestonParams(), device=dev)
+    m.init(1234)
+    res = m.compute()
+    bar = 3 * res.ci_error + 2e-3
+    assert abs(res.price - heston_call_undiscounted(m.params)) <= bar
+
+
+@pytest.mark.parametrize("rng,conditional", [("philox", False),
+                                             ("threefry4", False),
+                                             ("philox", True)])
+def test_em_kernel_matches_plain_and_is_deterministic(dev, rng, conditional):
+    """Every path's final counter and payoff equal the plain version's;
+    moments at rel 1e-6 (float64 sums in another order); bitwise-equal
+    moments from two launches."""
+    pv = HestonParams().as_tensor("cpu")
+    key = (1234, 0)
+    for N, cut, base in ((8, 4000.0, 0), (32, 128.0, 1 << 14)):
+        before = em_moments_cuda.launches
+        m, m2, pay, ctr = em_moments_cuda(
+            pv, key, 2, base, N=N, n_paths=1 << 13, device=dev, rng=rng,
+            conditional=conditional, poisson_cut=cut, per_path=True)
+        again = em_moments_cuda(pv, key, 2, base, N=N, n_paths=1 << 13,
+                                device=dev, rng=rng, conditional=conditional,
+                                poisson_cut=cut)
+        assert em_moments_cuda.launches == before + 2
+        k = torch.stack([m, m2])
+        assert torch.equal(k, torch.stack(again))
+        p_pay, p_ctr = em_payoffs(pv.to(dev), N,
+                                  path_index_grid(1 << 13, base, dev), 2,
+                                  *key, rng=rng, conditional=conditional,
+                                  poisson_cut=cut)
+        assert torch.equal(ctr, p_ctr)
+        assert torch.equal(pay, p_pay)
+        torch.testing.assert_close(k, torch.stack(moments_f64(p_pay)),
+                                   rtol=1e-6, atol=0)
+
+
+def test_em_prices_within_oracle_bar(dev):
+    m = NMCH_EM(SimConfig(NB=128, N=50), HestonParams(), device=dev)
     m.init(1234)
     res = m.compute()
     bar = 3 * res.ci_error + 2e-3

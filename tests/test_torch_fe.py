@@ -102,7 +102,7 @@ def test_path_index_grid_matches_and_wraps():
 
 
 def test_make_draw4_refuses_other_rngs():
-    with pytest.raises(ValueError, match="slice 2"):
+    with pytest.raises(ValueError, match="slice 3"):
         tfe.make_draw4("threefry4", None, None, 0, 0, 0)
 
 

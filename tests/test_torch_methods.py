@@ -1,5 +1,6 @@
 """Method layer of the PyTorch port against nmch_tpu's (lifecycle, stats
-block, typed errors, stream continuation, checkpoints, oracles)."""
+block, typed errors, stream continuation, checkpoints, oracles), for
+NMCH_FE and NMCH_EM."""
 
 import dataclasses
 import io
@@ -14,7 +15,8 @@ from nmch_tpu.oracle import black_scholes as j_bs
 from nmch_tpu.oracle import heston as j_heston
 from nmch_tpu import results as j_results
 import nmch_tpu_torch
-from nmch_tpu_torch import HestonParams, NMCH_FE, SimConfig, SimResult
+from nmch_tpu_torch import HestonParams, NMCH_EM, NMCH_FE, SimConfig, \
+    SimResult
 from nmch_tpu_torch.oracle import black_scholes as t_bs
 from nmch_tpu_torch.oracle import heston as t_heston
 from nmch_tpu_torch.rng.streams import PathStreams
@@ -72,15 +74,15 @@ def test_compute_before_init_raises():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"rng": "threefry4"}, "slice 2"),
-    ({"rng": "threefry"}, "slice 2"),
-    ({"rng": "tpu"}, "slice 2"),
+    ({"rng": "threefry4"}, "slice 3"),
+    ({"rng": "threefry"}, "slice 3"),
+    ({"rng": "tpu"}, "slice 3"),
     ({"rng": "mrg32k3a"}, "slice 5"),
     ({"rng": "xorwow"}, "slice 5"),
     ({"rng": "bogus"}, "unknown rng"),
-    ({"rot": 4}, "slice 2"),
+    ({"rot": 4}, "slice 3"),
     ({"rot": 3}, "rot must be"),
-    ({"antithetic": True}, "slice 2"),
+    ({"antithetic": True}, "slice 3"),
     ({"engine": "qmc"}, "slice 6"),
     ({"engine": "pallas"}, "unknown engine"),
     ({"device": "meta"}, "neither cpu nor cuda"),
@@ -195,3 +197,129 @@ def test_checkpoint_from_nmch_tpu_resumes_the_stream(tmp_path):
 def test_save_before_init_raises(tmp_path):
     with pytest.raises(RuntimeError):
         _pricer().save_state(str(tmp_path / "x.json"))
+
+
+# --- NMCH_EM ------------------------------------------------------------
+
+EM_CFG = SimConfig(NTPB=256, NB=4, N=8)       # 1024 paths
+
+
+def _em(**kw):
+    return NMCH_EM(EM_CFG, HestonParams(), **{"engine": "scan",
+                                              "device": "cpu", **kw})
+
+
+@pytest.mark.parametrize("rng,conditional", [("philox", False),
+                                             ("threefry4", True)])
+def test_em_lifecycle_and_stream_continuation(rng, conditional):
+    m = _em(rng=rng, conditional=conditional)
+    with pytest.raises(RuntimeError, match="init"):
+        m.compute()
+    m.init(1234)
+    r1 = m.compute()
+    r2 = m.compute()
+    assert r1.price != r2.price                  # the stream continued
+    assert 0.05 < r1.price < 0.25 and r1.price_squared > r1.price ** 2
+    assert m.get_err() == r2.err > 0 and m.streams.epoch == 2
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        m.print_stats()
+    assert "METHOD: EXACT-METHOD" in buf.getvalue()
+    m.finalize()
+    assert m.streams is None
+    m2 = _em(rng=rng, conditional=conditional)
+    m2.init(1234)
+    assert m2.compute().price == r1.price
+
+
+def test_em_print_stats_byte_identical_to_nmch_tpu():
+    res = SimResult(price=0.1234567, price_squared=0.0456789, n_paths=4096,
+                    exec_time_ms=12.345678, init_time_ms=0.012345)
+    outs = []
+    for pkg, m in ((nmch_tpu_torch, _em()),
+                   (nmch_tpu, nmch_tpu.NMCH_EM(nmch_tpu.SimConfig(),
+                                               nmch_tpu.HestonParams(),
+                                               engine="scan"))):
+        m.params = pkg.HestonParams(theta=0.08, sigma=0.4)
+        m.cfg = pkg.SimConfig(NTPB=128, NB=32, N=250, seed=9)
+        m.result = pkg.SimResult(**dataclasses.asdict(res))
+        m.init_time_ms = res.init_time_ms
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            m.print_stats()
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"rng": "mrg32k3a"}, "slice 5"),
+    ({"rng": "xorwow"}, "slice 5"),
+    ({"rng": "tpu"}, "unknown rng"),
+    ({"rng": "threefry"}, "unknown rng"),
+    ({"engine": "pallas"}, "unknown engine"),
+    ({"device": "meta"}, "neither cpu nor cuda"),
+])
+def test_em_unsupported_options_raise_value_error(kw, match):
+    with pytest.raises(ValueError, match=match):
+        _em(**kw)
+
+
+def test_em_cuda_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        NMCH_EM(EM_CFG, HestonParams())           # the defaults ask for a card
+
+
+def test_em_poisson_cut_default_is_the_method_layers_128():
+    assert _em().poisson_cut == 128.0 == \
+        nmch_tpu.NMCH_EM(nmch_tpu.SimConfig(), nmch_tpu.HestonParams(),
+                         engine="scan").poisson_cut
+    assert _em(poisson_cut=4000).poisson_cut == 4000.0
+    # at N=100 (lambda ~ 220) the default's normal branch draws another
+    # stream than curand's 4000 (PTRS)
+    cfg = SimConfig(NTPB=128, NB=1, N=100)
+    prices = []
+    for cut in (None, 128.0, 4000.0):
+        m = NMCH_EM(cfg, HestonParams(), engine="scan", device="cpu",
+                    poisson_cut=cut)
+        m.init(3)
+        prices.append(m.compute().price)
+    assert prices[0] == prices[1] != prices[2]
+
+
+def test_em_greeks_name_their_slice():
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        _em().greeks()
+
+
+def test_em_cuda_engine_on_cpu_equals_scan_engine():
+    prices = []
+    for engine in ("cuda", "scan"):
+        m = _em(engine=engine, poisson_cut=16.0)
+        m.init(5)
+        prices.append((m.compute().price, m.compute().price_squared))
+    assert prices[0] == prices[1]
+
+
+@pytest.mark.parametrize("rng,conditional", [("philox", False),
+                                             ("threefry4", True)])
+def test_em_checkpoint_from_nmch_tpu_resumes_the_stream(tmp_path, rng,
+                                                        conditional):
+    """A checkpoint nmch_tpu's NMCH_EM writes after one compute() loads
+    into the port at the same epoch, whose next price agrees with
+    nmch_tpu's next price (measured: rel 2e-8 to 1e-7)."""
+    jm = nmch_tpu.NMCH_EM(nmch_tpu.SimConfig(NTPB=256, NB=4, N=8, seed=77),
+                          nmch_tpu.HestonParams(theta=0.12), engine="scan",
+                          rng=rng, conditional=conditional)
+    jm.init(77)
+    jm.compute()
+    path = tmp_path / "ckpt.json"
+    jm.save_state(str(path))
+    epoch = jm.streams.epoch
+    want = jm.compute().price
+
+    m = _em(rng=rng, conditional=conditional)
+    m.load_state(str(path))
+    assert m.streams.epoch == epoch == 1 and m.params.theta == 0.12
+    got = m.compute().price
+    assert abs(got - want) <= 1e-5 * abs(want)

@@ -52,6 +52,35 @@ def test_uniform_and_neg2log_bitwise():
                                   _bits(tn.neg2log(u_t).numpy()))
 
 
+def test_uniform_halfopen01_and_sincos_2pi_bitwise():
+    w = _words(4)[0]
+    u_j = jn.uniform_halfopen01(jnp.asarray(w))
+    u_t = tn.uniform_halfopen01(torch.from_numpy(w.astype(np.int64)))
+    np.testing.assert_array_equal(_bits(u_j), _bits(u_t.numpy()))
+    assert float(u_t.min()) == 0.0 and float(u_t.max()) < 1.0
+    # the turns phase of boxmuller is an open-(0, 1] uniform
+    u = np.concatenate([np.asarray(jn.uniform_open01(jnp.asarray(w))),
+                        np.asarray(u_j),
+                        np.arange(9, dtype=np.float32) / 8])
+    for a, b in zip(jn.sincos_2pi(jnp.asarray(u)),
+                    tn.sincos_2pi(torch.from_numpy(u))):
+        np.testing.assert_array_equal(_bits(a), _bits(b.numpy()))
+
+
+def test_boxmuller_within_2_ulp():
+    """boxmuller's log is torch's (not XLA's) on the CPU, so its radius
+    may round differently; both outputs stay within 2 ulp."""
+    w = _words(5)
+    u1j, u2j = (jn.uniform_open01(jnp.asarray(x)) for x in w[:2])
+    u1t, u2t = (tn.uniform_open01(torch.from_numpy(x.astype(np.int64)))
+                for x in w[:2])
+    for a, b in zip(jn.boxmuller(u1j, u2j), tn.boxmuller(u1t, u2t)):
+        a = np.asarray(a, np.float32)
+        b = b.numpy()
+        ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+        assert (np.abs(a - b) <= 2 * ulp).all()
+
+
 def test_sqrt_f32_correctly_rounded():
     x = np.random.default_rng(3).random(1 << 14, dtype=np.float32) * 40
     np.testing.assert_array_equal(
@@ -69,7 +98,7 @@ def test_bitcasts_roundtrip_all_sign_classes():
 
 def test_other_boxes_refused():
     z = torch.zeros(4, dtype=torch.int64)
-    with pytest.raises(ValueError, match="slice 2"):
+    with pytest.raises(ValueError, match="slice 3"):
         tn.normal4_from_bits(z, z, z, z, box="turns")
 
 
