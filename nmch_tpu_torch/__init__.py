@@ -13,6 +13,9 @@ imports torch, numpy and scipy, never jax.
     m.finalize()
 
 ``NMCH_EM`` (the Broadie–Kaya exact scheme) has the same lifecycle.
+The entry points are the modules ``cli`` (one pricing run) and
+``explore`` (the (k, theta, sigma) sweep), each runnable with
+``python -m``.
 """
 
 from .params import HestonParams, SimConfig, DEFAULT_PARAMS, DEFAULT_CONFIG

@@ -28,7 +28,7 @@ import time
 
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "fe_philox.cu", CSRC / "em.cu")
+SOURCES = (CSRC / "fe.cu", CSRC / "em.cu", CSRC / "sweep.cu")
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_ROOT = _PKG.parent / "build" / "nmch_tpu_torch"
 LIB_NAME = "libnmch_tpu_torch.so"
@@ -99,18 +99,25 @@ def load_library() -> tuple[ctypes.CDLL, BuildInfo]:
     """Build (if needed) and load the kernel library once per process."""
     info = build_library()
     lib = ctypes.CDLL(str(info.path))
-    lib.nmch_fe_philox_moments.argtypes = (
+    lib.nmch_fe_moments.argtypes = (
         [ctypes.c_float] * 8
         + [ctypes.c_uint32] * 4
-        + [ctypes.c_int64, ctypes.c_int64]
-        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    lib.nmch_fe_philox_moments.restype = ctypes.c_int
+        + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+        + [ctypes.c_void_p] * 3)
+    lib.nmch_fe_moments.restype = ctypes.c_int
     lib.nmch_em_moments.argtypes = (
         [ctypes.POINTER(ctypes.c_float)]
         + [ctypes.c_uint32] * 4
         + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p] * 5)
     lib.nmch_em_moments.restype = ctypes.c_int
+    sweep_head = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_uint32] * 3 \
+        + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+    lib.nmch_fe_sweep_moments.argtypes = sweep_head + [ctypes.c_void_p] * 3
+    lib.nmch_fe_sweep_moments.restype = ctypes.c_int
+    lib.nmch_em_sweep_moments.argtypes = (sweep_head + [ctypes.c_int]
+                                          + [ctypes.c_void_p] * 5)
+    lib.nmch_em_sweep_moments.restype = ctypes.c_int
     lib.nmch_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nmch_cuda_error_string.restype = ctypes.c_char_p
     return lib, info

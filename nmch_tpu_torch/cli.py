@@ -6,14 +6,15 @@ NTPB=512, NB=512, N=1000, seed=1234), except:
 
 * ``--engine cuda|scan`` (default cuda: the hand-written kernels) and
   ``--device`` (default cuda; never falls back to the CPU);
-* the RNG and variance-reduction options of later slices (FE's
-  ``--rng`` families other than philox, ``--rot``/``--antithetic``,
-  EM's mrg32k3a/xorwow, ``--scramble``, ``--greeks``) are parser errors
-  that name the ROADMAP.md slice that brings them.
+* the RNG and variance-reduction options of later slices (``--rng``
+  threefry and tpu, FE's ``--rot``/``--antithetic``, mrg32k3a/xorwow,
+  ``--scramble``, ``--greeks``) are parser errors that name the
+  ROADMAP.md slice that brings them.
 
 Run: ``python -m nmch_tpu_torch.cli`` (the FE main path on the card) or
 ``python -m nmch_tpu_torch.cli --method em`` (the exact scheme, with
-``--rng philox|threefry4``, ``--conditional`` and ``--poisson-cut``).
+``--conditional`` and ``--poisson-cut``); both methods take
+``--rng philox|threefry4``.
 """
 
 from __future__ import annotations
@@ -58,8 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rng", choices=["philox", "threefry", "threefry4",
                                      "tpu", "mrg32k3a", "xorwow"],
                    default="philox",
-                   help="philox; EM also takes threefry4 (the others are "
-                        "later slices)")
+                   help="philox or threefry4 (threefry and tpu are "
+                        "ROADMAP.md slice 3, mrg32k3a and xorwow slice 5)")
     p.add_argument("--poisson-cut", type=float, default=None,
                    help="EM only: lambda at and above which the Poisson "
                         "mixture index uses the one-round normal "

@@ -1,6 +1,8 @@
 // Counter-based generators of the port's streams, one 4-word block per
 // call, bitwise nmch_tpu_torch/rng/philox.py and rng/threefry4.py (and so
 // nmch_tpu's): counter (block, epoch, path_lo, path_hi), key from the seed.
+// The path kernels (fe_path.cuh, em_path.cuh) take the generator as a
+// template parameter R, a CounterRng (also the C entry points' `rng`).
 
 #pragma once
 
@@ -9,6 +11,8 @@
 
 namespace nmch {
 namespace {
+
+enum CounterRng { kPhilox = 0, kThreefry4 = 1 };
 
 constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
 constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
@@ -86,6 +90,18 @@ __device__ __forceinline__ void threefry4x32_12(uint32_t& x0, uint32_t& x1,
   threefry_round<13, 27>(x0, x1, x2, x3);
   threefry_round<23, 5>(x0, x1, x2, x3);
   threefry_inject<3>(x0, x1, x2, x3, ks);
+}
+
+// The block of generator R at counter (c0..c3), in place.
+template <int R>
+__device__ __forceinline__ void counter_block(uint32_t& c0, uint32_t& c1,
+                                              uint32_t& c2, uint32_t& c3,
+                                              uint32_t k0, uint32_t k1) {
+  if (R == kPhilox) {
+    philox4x32_10(c0, c1, c2, c3, k0, k1);
+  } else {
+    threefry4x32_12(c0, c1, c2, c3, k0, k1);
+  }
 }
 
 }  // namespace

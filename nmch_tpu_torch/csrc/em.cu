@@ -80,7 +80,7 @@ extern "C" int nmch_em_moments(const float* consts, uint32_t k0, uint32_t k1,
                                void* stream) {
   if (N < 1 || N > (int64_t(1) << 30) || n_paths < kPathThreads ||
       n_paths % kPathThreads != 0 || n_paths > (int64_t(1) << 32) ||
-      (rng != nmch::kEmPhilox && rng != nmch::kEmThreefry4) ||
+      (rng != nmch::kPhilox && rng != nmch::kThreefry4) ||
       (conditional != 0 && conditional != 1) ||
       ((payoff_out == nullptr) != (ctr_out == nullptr))) {
     return (int)cudaErrorInvalidValue;
@@ -95,10 +95,10 @@ extern "C" int nmch_em_moments(const float* consts, uint32_t k0, uint32_t k1,
   using Launch = cudaError_t (*)(const EmArgs&, int64_t, double*, float*,
                                  uint32_t*, cudaStream_t);
   constexpr Launch kLaunch[2][2] = {
-      {launch_em_paths<nmch::kEmPhilox, false>,
-       launch_em_paths<nmch::kEmPhilox, true>},
-      {launch_em_paths<nmch::kEmThreefry4, false>,
-       launch_em_paths<nmch::kEmThreefry4, true>}};
+      {launch_em_paths<nmch::kPhilox, false>,
+       launch_em_paths<nmch::kPhilox, true>},
+      {launch_em_paths<nmch::kThreefry4, false>,
+       launch_em_paths<nmch::kThreefry4, true>}};
   const cudaError_t err = kLaunch[rng][conditional](a, n_blocks, partials,
                                                     payoff_out, ctr_out, st);
   if (err != cudaSuccess) return (int)err;

@@ -36,8 +36,6 @@ struct EmArgs {
 };
 constexpr int kEmConsts = 13;
 
-enum EmRng { kEmPhilox = 0, kEmThreefry4 = 1 };
-
 // float32 literals of nmch_tpu/ops/sampling.py, ops/em.py and rng/normal.py
 // (shortest round-trip decimal of each float32 value);
 // tests/test_torch_em.py parses this table and holds each literal to the
@@ -100,11 +98,7 @@ __device__ __forceinline__ void draw4(uint32_t ctr, const EmArgs& a,
   w[1] = a.epoch;
   w[2] = path;
   w[3] = 0u;
-  if (R == kEmPhilox) {
-    philox4x32_10(w[0], w[1], w[2], w[3], a.k0, a.k1);
-  } else {
-    threefry4x32_12(w[0], w[1], w[2], w[3], a.k0, a.k1);
-  }
+  counter_block<R>(w[0], w[1], w[2], w[3], a.k0, a.k1);
 }
 
 __device__ __forceinline__ float uniform_open01(uint32_t w) {

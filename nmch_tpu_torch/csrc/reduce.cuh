@@ -1,15 +1,18 @@
 // Deterministic float64 sum of (payoff, payoff^2) over all paths, shared by
-// the path kernels (fe_philox.cu, em.cu).
+// the path kernels (fe.cu, em.cu, sweep.cu).
 //
 // Replaces the TPU kernels' compensated sum across the sequential grid
-// (nmch_tpu/ops/fe_pallas.py::_kahan_add). Hopper's blocks run in any order,
-// so the sum is two passes in a fixed order, with no float atomics:
+// (nmch_tpu/ops/fe_pallas.py::_kahan_add, sweep_pallas.py::_kahan_row_add).
+// Hopper's blocks run in any order, so the sum is two passes in a fixed
+// order, with no float atomics:
 //   1. block_sum_to_partials: each 128-thread block sums its paths in a
 //      shared-memory float64 tree and writes one (sum, sum_sq) partial;
-//   2. sum_partials: one 256-thread block sums the partials, thread t taking
-//      partials t, t + 256, ... in order, then a fixed tree, and writes
-//      (sum / n_paths, sum_sq / n_paths).
-// Equal inputs give bitwise-equal moments.
+//   2. sum_partials: one 256-thread block per point sums that point's
+//      partials, thread t taking partials t, t + 256, ... in order, then a
+//      fixed tree, and writes (sum / n_paths, sum_sq / n_paths).
+// A sweep of P points keeps point p's partials at [p][block] and launches
+// P blocks in the second pass; each point's sum is then the order of a
+// single-point run, so equal inputs give bitwise-equal moments in both.
 
 #pragma once
 
@@ -20,9 +23,11 @@ namespace nmch {
 namespace {
 
 constexpr int kPathThreads = 128;    // paths per block (n_paths % 128 == 0)
-constexpr int kReduceThreads = 256;  // threads of the single partials block
+constexpr int kReduceThreads = 256;  // threads of each point's partials block
 
-// Called by all kPathThreads threads of a block, each with its path's payoff.
+// Called by all kPathThreads threads of a block, each with its path's payoff;
+// writes partials[2 * blockIdx.x] and partials[2 * blockIdx.x + 1] (a sweep
+// passes its point's row of partials).
 __device__ __forceinline__ void block_sum_to_partials(float payoff,
                                                       double* partials) {
   __shared__ double sh_sum[kPathThreads];
@@ -45,9 +50,12 @@ __device__ __forceinline__ void block_sum_to_partials(float payoff,
   }
 }
 
+// Block p sums the n_blocks partials of point p into out[2p], out[2p + 1].
 __global__ void __launch_bounds__(kReduceThreads)
     sum_partials(const double* __restrict__ partials, int64_t n_blocks,
                  int64_t n_paths, double* __restrict__ out) {
+  partials += 2 * n_blocks * (int64_t)blockIdx.x;
+  out += 2 * (int64_t)blockIdx.x;
   __shared__ double sh_sum[kReduceThreads];
   __shared__ double sh_sq[kReduceThreads];
   const int t = threadIdx.x;
@@ -73,12 +81,14 @@ __global__ void __launch_bounds__(kReduceThreads)
   }
 }
 
-// Second pass on `st`; returns the launch's cudaError_t.
+// Second pass for n_points points on `st`; returns the launch's
+// cudaError_t.
 inline cudaError_t launch_sum_partials(const double* partials,
                                        int64_t n_blocks, int64_t n_paths,
-                                       double* out, cudaStream_t st) {
-  sum_partials<<<1, kReduceThreads, 0, st>>>(partials, n_blocks, n_paths,
-                                             out);
+                                       double* out, cudaStream_t st,
+                                       int64_t n_points = 1) {
+  sum_partials<<<(unsigned)n_points, kReduceThreads, 0, st>>>(
+      partials, n_blocks, n_paths, out);
   return cudaGetLastError();
 }
 

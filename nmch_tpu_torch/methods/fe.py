@@ -3,14 +3,15 @@
 Two engines, as in ``nmch_tpu/methods/fe.py``:
 
     engine="cuda" (default) — the hand-written kernel
-                              (ops/fe_cuda.py -> csrc/fe_philox.cu);
+                              (ops/fe_cuda.py -> csrc/fe.cu);
     engine="scan"           — the plain PyTorch golden (ops/fe.py),
                               the oracle the kernel is held against.
 
-Both draw from counter-based Philox4x32-10 streams keyed by (seed,
-path, epoch), bitwise the streams of ``nmch_tpu``.  The other RNG
-families, rotation sampling and the QMC engine are later slices of the
-port (ROADMAP.md Queue 1) and are refused by name until they land.
+Both draw from counter-based Philox4x32-10 or Threefry-4x32-12 streams
+keyed by (seed, path, epoch), bitwise the streams of ``nmch_tpu``.  The
+other RNG families, rotation sampling and the QMC engine are later
+slices of the port (ROADMAP.md Queue 1) and are refused by name until
+they land.
 """
 
 from __future__ import annotations
@@ -21,9 +22,8 @@ from ..params import HestonParams, SimConfig
 from .base import NMCH
 
 _LATER_RNGS = {
-    "threefry": "slice 3 (FE variants)",
-    "threefry4": "slice 3 (FE variants)",
-    "tpu": "slice 3 (FE variants; the device-PRNG kernel)",
+    "threefry": "slice 3 (FE variants), item 10",
+    "tpu": "slice 3 (FE variants), item 12: the device-PRNG kernel",
     "mrg32k3a": "slice 5 (stateful curand families)",
     "xorwow": "slice 5 (stateful curand families)",
 }
@@ -50,8 +50,9 @@ class NMCH_FE(NMCH):
         if rng in _LATER_RNGS:
             raise ValueError(f"rng={rng!r} is not ported yet (ROADMAP.md "
                              f"Queue 1, {_LATER_RNGS[rng]})")
-        if rng != "philox":
-            raise ValueError(f"unknown rng {rng!r}")
+        if rng not in ("philox", "threefry4"):
+            raise ValueError(f"unknown rng {rng!r} (NMCH_FE supports "
+                             f"philox/threefry4)")
         if rot not in (None, 1, 2, 4, 8):
             raise ValueError(f"rot must be 1, 2, 4 or 8, got {rot}")
         if antithetic or rot not in (None, 1):
@@ -60,13 +61,15 @@ class NMCH_FE(NMCH):
                              "slice 3: FE variants)")
         super().__init__(cfg, params, device)
         self.engine = engine
+        self.rng = rng
 
     def _moments(self, epoch: int):
         k0, k1 = self.streams.key_words
         if self.engine == "cuda":
             return fe_moments_cuda(
                 self.params.as_tensor("cpu"), (k0, k1), epoch, 0,
-                N=self.cfg.N, n_paths=self.cfg.n_paths, device=self.device)
+                N=self.cfg.N, n_paths=self.cfg.n_paths, device=self.device,
+                rng=self.rng)
         pidx = path_index_grid(self.cfg.n_paths, device=self.device)
         return fe_moments_scan(self.params.as_tensor(self.device),
-                               self.cfg.N, pidx, epoch, k0, k1)
+                               self.cfg.N, pidx, epoch, k0, k1, rng=self.rng)

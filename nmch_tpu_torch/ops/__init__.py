@@ -1,1 +1,2 @@
-"""FE step math, its plain PyTorch golden and the CUDA kernel wrapper."""
+"""FE and EM step math, their plain PyTorch goldens, the plain sweeps and
+the CUDA kernel wrappers."""

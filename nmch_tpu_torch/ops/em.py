@@ -23,8 +23,12 @@ block for the terminal normal.
 
 ``em_consts`` computes the loop constants once, in float32 on the CPU;
 the plain version here and the kernel wrapper (``ops/em_cuda.py``) both
-start from its bits.  Layout: paths in (n_paths/128, 128) tensors, as in
-``ops/fe.py``; moments are summed in float64.
+start from its bits.  ``em_consts_table`` gives the same bits for each
+point of a sweep (``ops/sweep.py``, ``ops/sweep_cuda.py``), and the
+``*_from_consts`` functions take constants that are Python floats (one
+point) or (P, 1, 1) tensors (P points on a leading axis).  Layout: paths
+in (n_paths/128, 128) tensors, as in ``ops/fe.py``; moments are summed in
+float64.
 """
 
 from __future__ import annotations
@@ -69,20 +73,37 @@ def em_consts(params, N: int, poisson_cut: float | None = None) -> EmConsts:
     """``nmch_tpu.ops.em.em_path_law``'s constants, in its order of float32
     operations, computed on the CPU.  params: float32 (8,) tensor (T, S_0,
     v_0, r, k, rho, theta, sigma); poisson_cut None means 4000."""
-    p = params.detach().to("cpu", torch.float32)
-    T, S_0, v_0, r, k, rho, theta, sigma = p.unbind()
+    row = em_consts_table(params.reshape(1, 8), N, poisson_cut)[0]
+    return EmConsts(*(float(v) for v in row))
+
+
+def em_consts_table(params_matrix, N: int,
+                    poisson_cut: float | None = None) -> torch.Tensor:
+    """float32 (P, 13) on the CPU: row p holds the ``EmConsts`` of
+    params_matrix[p], a float32 (P, 8) matrix of (T, S_0, v_0, r, k, rho,
+    theta, sigma) rows.
+
+    The arithmetic runs on the (P,) columns (IEEE float32 operations, so
+    each element rounds as a 0-dim one does).  The two transcendentals go
+    element by element: torch's CPU exp and log may round an element of a
+    vector (SIMD body) differently from a 0-dim tensor (scalar path), and
+    a point's constants must not depend on the points beside it."""
+    p = params_matrix.detach().to("cpu", torch.float32)
+    T, S_0, v_0, r, k, rho, theta, sigma = p.unbind(1)
     dt = T / N
-    exp_kdt = torch.exp(-k * dt)
+    exp_kdt = torch.stack([torch.exp(x) for x in -k * dt])
     sig2 = sigma * sigma
     d = 2.0 * k * theta / sig2
     one_m = 1.0 - exp_kdt
     lam_const = 2.0 * k * exp_kdt / (sig2 * one_m)
     vfac = sig2 * one_m / (2.0 * k)
-    cut = POISSON_LARGE if poisson_cut is None else poisson_cut
-    log_S0 = torch.log(S_0)
-    vals = (v_0, S_0, lam_const, d, vfac, dt * 0.5, log_S0, log_S0 + r * T,
-            rho / sigma, k * theta * T, k, 1.0 - rho * rho)
-    return EmConsts(*(float(v) for v in vals), float(np.float32(cut)))
+    log_S0 = torch.stack([torch.log(x) for x in S_0])
+    cut = float(np.float32(POISSON_LARGE if poisson_cut is None
+                           else poisson_cut))
+    cols = (v_0, S_0, lam_const, d, vfac, dt * 0.5, log_S0, log_S0 + r * T,
+            rho / sigma, k * theta * T, k, 1.0 - rho * rho,
+            torch.full_like(T, cut))
+    return torch.stack(cols, dim=1)
 
 
 def em_path_law(params, N: int, path_lo, path_hi, epoch, k0, k1,
@@ -91,10 +112,18 @@ def em_path_law(params, N: int, path_lo, path_hi, epoch, k0, k1,
     final_ctr): ln S_T ~ N(m, sig_eff^2) given the variance path.  path_lo
     and path_hi are int64 tensors of u32 path words; the counters come
     back as an int64 tensor of the same shape."""
-    c = em_consts(params, N, poisson_cut)
-    Vt = torch.full(path_lo.shape, c.v_0, device=path_lo.device)
-    vI = torch.zeros(path_lo.shape, device=path_lo.device)
-    ctr = torch.zeros_like(path_lo)
+    return path_law_from_consts(em_consts(params, N, poisson_cut), N,
+                                path_lo, path_hi, epoch, k0, k1, rng)
+
+
+def path_law_from_consts(c: EmConsts, N: int, path_lo, path_hi, epoch,
+                         k0, k1, rng: str):
+    """``em_path_law`` from its constants.  The fields of ``c`` other than
+    ``poisson_cut`` (always a float) may be tensors that broadcast against
+    ``path_lo``, as may ``epoch``; the outputs take the broadcast shape."""
+    Vt = torch.zeros(path_lo.shape, device=path_lo.device) + c.v_0
+    vI = torch.zeros_like(Vt)
+    ctr = torch.zeros(Vt.shape, dtype=torch.int64, device=path_lo.device)
     for _ in range(N):
         lam = c.lam_const * Vt
         N_p, ctr = poisson_from_stream(lam, ctr, epoch, path_lo, path_hi,
@@ -115,9 +144,15 @@ def em_path_law(params, N: int, path_lo, path_hi, epoch, k0, k1,
 def em_terminal_core(params, N: int, path_lo, path_hi, epoch, k0, k1,
                      rng: str = "philox", poisson_cut: float | None = None):
     """Simulate the exact scheme; returns (S_T, v_T, vI, final_ctr)."""
-    m, sig_eff, Vt, vI, ctr = em_path_law(params, N, path_lo, path_hi,
-                                          epoch, k0, k1, rng=rng,
-                                          poisson_cut=poisson_cut)
+    return terminal_from_consts(em_consts(params, N, poisson_cut), N,
+                                path_lo, path_hi, epoch, k0, k1, rng)
+
+
+def terminal_from_consts(c: EmConsts, N: int, path_lo, path_hi, epoch,
+                         k0, k1, rng: str):
+    """``em_terminal_core`` from its constants (``path_law_from_consts``)."""
+    m, sig_eff, Vt, vI, ctr = path_law_from_consts(c, N, path_lo, path_hi,
+                                                   epoch, k0, k1, rng)
     # terminal draw (one more block per path)
     w0, w1, _, _, ctr = make_stream_draw4(rng, epoch, path_lo, path_hi,
                                           k0, k1)(ctr)
@@ -171,16 +206,20 @@ def em_payoffs(params, N: int, path_idx, epoch, k0, k1,
     """Per-path (payoff float32, final counter int64) in the layout of
     ``path_idx``: X = (S_T - K)^+, K = S_0, or its conditional
     expectation given the variance path (one fewer block per path)."""
-    c = em_consts(params, N, poisson_cut)
+    return payoffs_from_consts(em_consts(params, N, poisson_cut), N,
+                               path_idx, epoch, k0, k1, rng, conditional)
+
+
+def payoffs_from_consts(c: EmConsts, N: int, path_idx, epoch, k0, k1,
+                        rng: str, conditional: bool):
+    """``em_payoffs`` from its constants (``path_law_from_consts``)."""
     path_hi = torch.zeros_like(path_idx)
     if conditional:
-        m, sig_eff, _, _, ctr = em_path_law(params, N, path_idx, path_hi,
-                                            epoch, k0, k1, rng=rng,
-                                            poisson_cut=poisson_cut)
+        m, sig_eff, _, _, ctr = path_law_from_consts(c, N, path_idx, path_hi,
+                                                     epoch, k0, k1, rng)
         return em_conditional_payoff(m, sig_eff, c.S_0, c.log_S0), ctr
-    S_T, _, _, ctr = em_terminal_core(params, N, path_idx, path_hi, epoch,
-                                      k0, k1, rng=rng,
-                                      poisson_cut=poisson_cut)
+    S_T, _, _, ctr = terminal_from_consts(c, N, path_idx, path_hi, epoch,
+                                          k0, k1, rng)
     return torch.clamp_min(S_T - c.S_0, 0.0), ctr
 
 

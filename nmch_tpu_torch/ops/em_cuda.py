@@ -15,12 +15,10 @@ import ctypes
 
 import torch
 
-from .._build import load_library
 from .em import em_consts, em_payoffs
 from .fe import LANES, moments_f64, path_index_grid
-from .fe_cuda import check_args
-
-RNGS = ("philox", "threefry4")
+from .fe_cuda import RNGS, call_kernel, check_args, check_rng, \
+    count_launch
 
 
 def variant_name(rng: str, conditional: bool) -> str:
@@ -48,9 +46,7 @@ def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
     """
     device, N, n_paths, k0, k1, epoch, base_path = check_args(
         params, seed_words, epoch, base_path, N, n_paths, device)
-    if rng not in RNGS:
-        raise ValueError(f"rng={rng!r}: the EM kernel takes 'philox' or "
-                         f"'threefry4'")
+    check_rng(rng, "EM")
     if device.type == "cpu":
         payoff, ctr = em_payoffs(params, N, path_index_grid(n_paths,
                                                             base_path),
@@ -60,7 +56,6 @@ def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
         m, m2 = moments_f64(payoff)
         return (m, m2, payoff, ctr) if per_path else (m, m2)
 
-    lib, _ = load_library()
     consts = (ctypes.c_float * 13)(*em_consts(params, N, poisson_cut))
     partials = torch.empty(2 * (n_paths // LANES), dtype=torch.float64,
                            device=device)
@@ -71,20 +66,13 @@ def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
                              device=device)
         ctr = torch.empty(n_paths // LANES, LANES, dtype=torch.int32,
                           device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.nmch_em_moments(
-            consts, k0, k1, epoch, base_path, N, n_paths, RNGS.index(rng),
-            int(bool(conditional)), partials.data_ptr(), out.data_ptr(),
-            None if payoff is None else payoff.data_ptr(),
-            None if ctr is None else ctr.data_ptr(), stream)
     name = variant_name(rng, conditional)
-    if rc != 0:
-        msg = lib.nmch_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
-    em_moments_cuda.launches += 1
-    em_moments_cuda.variant_launches[name] = \
-        em_moments_cuda.variant_launches.get(name, 0) + 1
+    call_kernel("nmch_em_moments", name, device, consts, k0, k1, epoch,
+                base_path, N, n_paths, RNGS.index(rng),
+                int(bool(conditional)), partials.data_ptr(), out.data_ptr(),
+                None if payoff is None else payoff.data_ptr(),
+                None if ctr is None else ctr.data_ptr())
+    count_launch(em_moments_cuda, name)
     if per_path:
         return out[0], out[1], payoff, ctr.to(torch.int64) & 0xFFFFFFFF
     return out[0], out[1]

@@ -1,14 +1,15 @@
 """Forward-Euler Heston scheme: the step math and the plain PyTorch golden.
 
-The counterpart of ``nmch_tpu/ops/fe.py`` for rng="philox", rot=1.
+The counterpart of ``nmch_tpu/ops/fe.py`` for rng="philox" or
+"threefry4", rot=1.
 Per time step, with correlated standard normals (G1, G2)
 (reference README.md:30-40, ``src/NMCH/methods/NMCH_FE.cu:41-48``):
 
     S <- S + r S dt + sqrt(v) S sqrt(dt) (rho G1 + sqrt(1-rho^2) G2)
     v <- | v + k (theta - v) dt + sigma sqrt(v) sqrt(dt) G1 |
 
-RNG consumption contract (shared with the CUDA kernel
-``csrc/fe_philox.cu``): counter block ``j`` of each path's Philox stream
+RNG consumption contract (shared with the CUDA kernels ``csrc/fe.cu``
+and ``csrc/sweep.cu``): counter block ``j`` of each path's stream
 yields 4 u32 words -> 4 normals; words (0, 1) drive step ``2j`` and
 words (2, 3) drive step ``2j+1``.  For odd N the final half-block is
 skipped.
@@ -26,6 +27,7 @@ import torch
 
 from ..rng.normal import normal4_from_bits, sqrt_f32
 from ..rng.philox import MASK32, philox4x32
+from ..rng.threefry4 import draw4_threefry4
 
 LANES = 128
 
@@ -66,11 +68,19 @@ def fe_step(S, v, g1, g2, cst):
 
 def make_draw4(rng: str, path_lo, path_hi, epoch, k0, k1):
     """Block index -> 4 u32 words of each path's stream."""
-    if rng != "philox":
-        raise ValueError(f"rng={rng!r} is not ported; only 'philox' is "
-                         f"(threefry/threefry4 come with the FE variants, "
-                         f"ROADMAP.md Queue 1, slice 3)")
-    return lambda j: philox4x32(j, epoch, path_lo, path_hi, k0, k1)
+    if rng == "philox":
+        return lambda j: philox4x32(j, epoch, path_lo, path_hi, k0, k1)
+    if rng == "threefry4":
+        return lambda j: draw4_threefry4(j, epoch, path_lo, k0, k1,
+                                         path_hi=path_hi)
+    if rng == "threefry":
+        raise ValueError("rng='threefry' is not ported yet (ROADMAP.md "
+                         "Queue 1, slice 3: FE variants, item 10)")
+    if rng == "tpu":
+        raise ValueError("rng='tpu' is not ported yet (ROADMAP.md Queue 1, "
+                         "slice 3: FE variants, item 12)")
+    raise ValueError(f"unknown counter rng {rng!r} (expected 'philox' or "
+                     f"'threefry4')")
 
 
 def fe_two_steps(S, v, g0, g1, g2, g3, j: int, cst, N: int):
@@ -86,7 +96,12 @@ def fe_terminal(params_vec, N: int, path_idx, epoch, k0, k1,
                 rng: str = "philox"):
     """Simulate all paths to maturity; returns (S_T, v_T) in the layout of
     ``path_idx``.  params_vec: f32[8] = (T, S_0, v_0, r, k, rho, theta,
-    sigma) on the device of ``path_idx``."""
+    sigma) on the device of ``path_idx``.
+
+    The parameters and ``epoch`` may also carry leading point axes that
+    broadcast against ``path_idx`` (``ops/sweep.py``: params (8, P, 1,
+    1), epoch (P, 1, 1), path_idx (R, 128)); every float operation is
+    then the single-point one, elementwise."""
     T, S_0, v_0, r, k, rho, theta, sigma = params_vec.unbind()
     dt = T / N
     sqrt_dt = sqrt_f32(dt)
@@ -95,8 +110,9 @@ def fe_terminal(params_vec, N: int, path_idx, epoch, k0, k1,
 
     draw = make_draw4(rng, path_idx, torch.zeros_like(path_idx), epoch,
                       k0, k1)
-    S = torch.full(path_idx.shape, 1.0, device=path_idx.device) * S_0
-    v = torch.full(path_idx.shape, 1.0, device=path_idx.device) * v_0
+    ones = torch.full(path_idx.shape, 1.0, device=path_idx.device)
+    S = ones * S_0
+    v = ones * v_0
     for j in range((N + 1) // 2):
         g0, g1, g2, g3 = normal4_from_bits(*draw(j))
         S, v = fe_two_steps(S, v, g0, g1, g2, g3, j, cst, N)

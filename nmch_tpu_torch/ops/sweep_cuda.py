@@ -1,0 +1,126 @@
+"""Sweep moments through the hand-written CUDA kernels ``csrc/sweep.cu``.
+
+The counterparts of ``nmch_tpu/ops/sweep_pallas.py::fe_sweep_pallas``
+(K3) and ``em_sweep_pallas`` (K4): the moments of P parameter points in
+one launch, point p at epoch ``(epoch0 + p) mod 2^32`` with path ids
+0..n_paths-1, so point p is bitwise the single-point kernel's moments at
+that epoch and base_path 0.  On a CUDA device the wrappers launch the
+kernel (grid (n_paths/128, P), then one block per point that sums its
+partials) or raise; on the CPU they run the plain sweep, ``ops/sweep.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .em import em_consts_table
+from .em_cuda import variant_name
+from .fe import LANES
+from .fe_cuda import RNGS, call_kernel, check_rng, check_sizes, \
+    check_u32, count_launch
+from .sweep import em_sweep_plain, fe_sweep_plain
+
+MAX_POINTS = 65535      # the kernels' gridDim.y
+
+
+def _check(params_matrix, seed_words, epoch0, N, n_paths, device, rng,
+           kernel: str):
+    device, N, n_paths = check_sizes(N, n_paths, device)
+    pm = params_matrix
+    if not isinstance(pm, torch.Tensor) or pm.dtype != torch.float32 \
+            or pm.dim() != 2 or pm.shape[1] != 8 or pm.device.type != "cpu":
+        raise ValueError("params_matrix must be a float32 tensor of shape "
+                         "(P, 8) on the CPU")
+    if not 1 <= pm.shape[0] <= MAX_POINTS:
+        raise ValueError(f"P={pm.shape[0]} points: the sweep takes 1 to "
+                         f"{MAX_POINTS}")
+    check_rng(rng, kernel)
+    k0, k1 = (check_u32("seed word", w) for w in seed_words)
+    return device, N, n_paths, k0, k1, check_u32("epoch0", epoch0)
+
+
+def _scratch(device, n_points: int, n_paths: int):
+    """The kernels' per-block partials and (P, 2) moments."""
+    partials = torch.empty(2 * n_points * (n_paths // LANES),
+                           dtype=torch.float64, device=device)
+    return partials, torch.empty(n_points, 2, dtype=torch.float64,
+                                 device=device)
+
+
+def fe_sweep_cuda(params_matrix, seed_words, epoch0, *, N: int,
+                  n_paths: int, device, rng: str = "philox"):
+    """(E[X], E[X^2]) of n_paths FE paths per point, as two float64 (P,)
+    tensors on ``device``.
+
+    params_matrix: float32 (P, 8) on the CPU, rows (T, S_0, v_0, r, k,
+    rho, theta, sigma); seed_words: the (k0, k1) u32 key; epoch0: u32;
+    rng: "philox" or "threefry4".  Each launch adds one to
+    ``fe_sweep_cuda.launches`` and to
+    ``fe_sweep_cuda.variant_launches[f"fe_sweep_{rng}"]``."""
+    device, N, n_paths, k0, k1, epoch0 = _check(
+        params_matrix, seed_words, epoch0, N, n_paths, device, rng,
+        "FE sweep")
+    if device.type == "cpu":
+        return fe_sweep_plain(params_matrix, (k0, k1), epoch0, N=N,
+                              n_paths=n_paths, rng=rng, device=device)
+    P = params_matrix.shape[0]
+    name = f"fe_sweep_{rng}"
+    params = params_matrix.contiguous().to(device)
+    partials, out = _scratch(device, P, n_paths)
+    call_kernel("nmch_fe_sweep_moments", name, device, params.data_ptr(), P,
+                k0, k1, epoch0, N, n_paths, RNGS.index(rng),
+                partials.data_ptr(), out.data_ptr())
+    count_launch(fe_sweep_cuda, name)
+    return out[:, 0], out[:, 1]
+
+
+fe_sweep_cuda.launches = 0
+fe_sweep_cuda.variant_launches = {}
+
+
+def em_sweep_cuda(params_matrix, seed_words, epoch0, *, N: int,
+                  n_paths: int, device, rng: str = "philox",
+                  conditional: bool = False,
+                  poisson_cut: float | None = None, per_path: bool = False):
+    """(E[X], E[X^2]) of n_paths EM paths per point, as two float64 (P,)
+    tensors on ``device``.
+
+    Arguments as ``fe_sweep_cuda``, plus ``conditional`` and
+    ``poisson_cut`` (None means 4000, as at the ops layer); the points'
+    loop constants (``em_consts_table``) go to the card as a (P, 13)
+    table.  per_path=True also returns each path's payoff (float32) and
+    final counter (int64), (P, n_paths/128, 128).  Each launch adds one to
+    ``em_sweep_cuda.launches`` and to ``em_sweep_cuda.variant_launches[
+    "em_sweep_" + variant]``."""
+    device, N, n_paths, k0, k1, epoch0 = _check(
+        params_matrix, seed_words, epoch0, N, n_paths, device, rng,
+        "EM sweep")
+    if device.type == "cpu":
+        return em_sweep_plain(params_matrix, (k0, k1), epoch0, N=N,
+                              n_paths=n_paths, rng=rng,
+                              conditional=conditional,
+                              poisson_cut=poisson_cut, device=device,
+                              per_path=per_path)
+    P = params_matrix.shape[0]
+    name = "em_sweep_" + variant_name(rng, conditional)[len("em_"):]
+    consts = em_consts_table(params_matrix, N, poisson_cut).to(device)
+    partials, out = _scratch(device, P, n_paths)
+    payoff = ctr = None
+    if per_path:
+        shape = (P, n_paths // LANES, LANES)
+        payoff = torch.empty(shape, dtype=torch.float32, device=device)
+        ctr = torch.empty(shape, dtype=torch.int32, device=device)
+    call_kernel("nmch_em_sweep_moments", name, device, consts.data_ptr(), P,
+                k0, k1, epoch0, N, n_paths, RNGS.index(rng),
+                int(bool(conditional)), partials.data_ptr(), out.data_ptr(),
+                None if payoff is None else payoff.data_ptr(),
+                None if ctr is None else ctr.data_ptr())
+    count_launch(em_sweep_cuda, name)
+    if per_path:
+        ctr = ctr.to(torch.int64) & 0xFFFFFFFF
+        return out[:, 0], out[:, 1], payoff, ctr
+    return out[:, 0], out[:, 1]
+
+
+em_sweep_cuda.launches = 0
+em_sweep_cuda.variant_launches = {}

@@ -11,6 +11,7 @@ quadrature.  Used as the statistical test oracle for both MC schemes.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -33,6 +34,16 @@ def _phi(u: complex, T: float, S_0: float, r: float, k: float, rho: float,
     return np.exp(C + D * v_0 + iu * (math.log(S_0) + r * T))
 
 
+@functools.lru_cache(maxsize=4)
+def _leggauss(n_nodes: int):
+    """Gauss-Legendre nodes and weights, computed once per node count (an
+    eigenproblem of size n_nodes: most of a call's time) and read-only."""
+    x, w = np.polynomial.legendre.leggauss(n_nodes)
+    x.setflags(write=False)
+    w.setflags(write=False)
+    return x, w
+
+
 def heston_call(params: HestonParams, K: float | None = None,
                 u_max: float = 200.0, n_nodes: int = 2000) -> float:
     """European call E[e^{-rT} (S_T - K)^+] via the P1/P2 decomposition.
@@ -49,7 +60,7 @@ def heston_call(params: HestonParams, K: float | None = None,
     lnK = math.log(K)
     phi_mi = _phi(-1j, p.T, p.S_0, p.r, p.k, p.rho, p.theta, p.sigma, p.v_0)
 
-    x, w = np.polynomial.legendre.leggauss(n_nodes)
+    x, w = _leggauss(n_nodes)
     u = 0.5 * u_max * (x + 1.0)
     wu = 0.5 * u_max * w
 

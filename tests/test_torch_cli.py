@@ -33,6 +33,16 @@ def test_json_matches_nmch_tpu_scan(capsys):
     assert abs(got["price"] - want["price"]) <= 1e-5 * abs(want["price"])
 
 
+def test_threefry4_json_matches_nmch_tpu_scan(capsys):
+    argv = ["--json", "--engine", "scan", "--rng", "threefry4", *SMALL]
+    got = _json_run(cli_run, [*argv, "--device", "cpu"], capsys)
+    want = _json_run(jax_cli_run, argv, capsys)
+    assert abs(got["price"] - want["price"]) <= 1e-5 * abs(want["price"])
+    philox = _json_run(cli_run, ["--json", "--engine", "scan", "--device",
+                                 "cpu", *SMALL], capsys)
+    assert got["price"] != philox["price"]
+
+
 def test_stats_block_and_oracle_json(capsys):
     assert cli_run(["--device", "cpu", "--no-warmup", *SMALL]) == 0
     assert "METHOD: FORWARD-EULER" in capsys.readouterr().out
@@ -55,12 +65,14 @@ def test_defaults_match_nmch_tpu():
     (["--method", "em", "--rng", "xorwow"], "slice 5"),
     (["--method", "em", "--rng", "tpu"], "does not support"),
     (["--method", "em", "--greeks"], "slice 7"),
-    (["--rng", "threefry4"], "slice 3"),
+    (["--rng", "threefry4", "--rot", "2"], "slice 3"),
     (["--rot", "4"], "slice 3"),
     (["--antithetic"], "slice 3"),
     (["--scramble", "owen"], "slice 6"),
     (["--greeks"], "slice 7"),
     (["--engine", "pallas"], "invalid choice"),
+    (["--rng", "threefry"], "slice 3 (FE variants), item 10"),
+    (["--rng", "tpu"], "slice 3 (FE variants), item 12"),
 ])
 def test_unported_options_are_parser_errors(argv, match, capsys):
     with pytest.raises(SystemExit) as e:
@@ -110,7 +122,9 @@ def test_package_and_cli_import_no_jax():
             "nmch_tpu_torch.ops.fe_cuda, nmch_tpu_torch.ops.em, "
             "nmch_tpu_torch.ops.em_cuda, nmch_tpu_torch.ops.sampling, "
             "nmch_tpu_torch.methods.em, nmch_tpu_torch.rng.threefry4, "
-            "nmch_tpu_torch._build; "
+            "nmch_tpu_torch._build, nmch_tpu_torch.explore, "
+            "nmch_tpu_torch.ops.sweep, nmch_tpu_torch.ops.sweep_cuda, "
+            "nmch_tpu_torch.analysis.heatmap; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'nmch_tpu' not in sys.modules, 'nmch_tpu imported'")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -14,7 +14,10 @@ from nmch_tpu_torch.ops.em import em_payoffs, moments_f64
 from nmch_tpu_torch.ops.em_cuda import em_moments_cuda
 from nmch_tpu_torch.ops.fe import fe_moments_scan, path_index_grid
 from nmch_tpu_torch.ops.fe_cuda import fe_moments_cuda
+from nmch_tpu_torch.ops.sweep import em_sweep_plain, fe_sweep_plain
+from nmch_tpu_torch.ops.sweep_cuda import em_sweep_cuda, fe_sweep_cuda
 from nmch_tpu_torch.oracle import heston_call_undiscounted
+from nmch_tpu_torch.explore import grid_params, grid_points
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +90,54 @@ def test_em_prices_within_oracle_bar(dev):
     res = m.compute()
     bar = 3 * res.ci_error + 2e-3
     assert abs(res.price - heston_call_undiscounted(m.params)) <= bar
+
+
+def _sweep_points():
+    pts = grid_points()
+    return grid_params(pts[:3] + pts[-3:])     # sigma = 0.1 and 1.0
+
+
+@pytest.mark.parametrize("rng,epoch0", [("philox", 0),
+                                        ("threefry4", 2**32 - 4)])
+def test_fe_sweep_matches_plain_and_single_point_kernel(dev, rng, epoch0):
+    """K3 vs the plain sweep at rel 1e-6; point p bitwise K1 at epoch
+    epoch0 + p."""
+    pm = _sweep_points()
+    key = (1234, 0)
+    kw = dict(N=11, n_paths=1 << 12, rng=rng)
+    before = fe_sweep_cuda.launches
+    m, m2 = fe_sweep_cuda(pm, key, epoch0, device=dev, **kw)
+    assert fe_sweep_cuda.launches == before + 1
+    k = torch.stack([m, m2])
+    p = torch.stack(fe_sweep_plain(pm, key, epoch0, device=dev, **kw))
+    torch.testing.assert_close(k, p, rtol=1e-6, atol=0)
+    for i, pv in enumerate(pm):
+        one = torch.stack(fe_moments_cuda(pv, key, (epoch0 + i) % 2**32, 0,
+                                          N=11, n_paths=1 << 12, device=dev,
+                                          rng=rng))
+        assert torch.equal(k[:, i], one)
+
+
+@pytest.mark.parametrize("rng,conditional,epoch0", [
+    ("philox", False, 2**32 - 4), ("threefry4", True, 0)])
+def test_em_sweep_matches_plain_and_single_point_kernel(dev, rng,
+                                                        conditional, epoch0):
+    """K4: every path's counter and payoff equal the plain sweep's,
+    moments at rel 1e-6; point p bitwise K2 at epoch epoch0 + p."""
+    pm = _sweep_points()
+    key = (1234, 0)
+    kw = dict(N=16, n_paths=1 << 12, rng=rng, conditional=conditional,
+              poisson_cut=128.0)
+    m, m2, pay, ctr = em_sweep_cuda(pm, key, epoch0, device=dev,
+                                    per_path=True, **kw)
+    pm_, pm2_, p_pay, p_ctr = em_sweep_plain(pm, key, epoch0, device=dev,
+                                             per_path=True, **kw)
+    assert torch.equal(ctr, p_ctr) and torch.equal(pay, p_pay)
+    k = torch.stack([m, m2])
+    torch.testing.assert_close(k, torch.stack([pm_, pm2_]), rtol=1e-6,
+                               atol=0)
+    for i, pv in enumerate(pm):
+        one = torch.stack(em_moments_cuda(
+            pv, key, (epoch0 + i) % 2**32, 0, N=16, n_paths=1 << 12,
+            device=dev, rng=rng, conditional=conditional, poisson_cut=128.0))
+        assert torch.equal(k[:, i], one)

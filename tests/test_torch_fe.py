@@ -56,6 +56,23 @@ def test_moments_match_nmch_tpu_scan(N, n_paths, epoch, base, pi):
     assert _rel(got, want) <= REL
 
 
+@pytest.mark.parametrize("N,epoch,base,pi", [
+    (100, 0, 0, 0),
+    (101, 5, 1 << 20, 1),
+])
+def test_threefry4_moments_match_nmch_tpu_scan(N, epoch, base, pi):
+    p = PARAMS[pi]
+    k0, k1 = split_seed(99 + pi)
+    want = _jax_scan()(p.as_array(), N, jfe.path_index_grid(1024, base),
+                       jnp.uint32(epoch), k0, k1, "threefry4")
+    got = tfe.fe_moments_scan(_pv(p), N, tfe.path_index_grid(1024, base),
+                              epoch, k0, k1, rng="threefry4")
+    assert _rel(got, want) <= REL
+    philox = tfe.fe_moments_scan(_pv(p), N, tfe.path_index_grid(1024, base),
+                                 epoch, k0, k1)
+    assert not torch.equal(got[0], philox[0])   # another stream
+
+
 @pytest.mark.parametrize("N", [11, 12])
 def test_moments_match_nmch_tpu_pallas_interpret(N):
     p = PARAMS[0]
@@ -103,20 +120,35 @@ def test_path_index_grid_matches_and_wraps():
 
 def test_make_draw4_refuses_other_rngs():
     with pytest.raises(ValueError, match="slice 3"):
-        tfe.make_draw4("threefry4", None, None, 0, 0, 0)
+        tfe.make_draw4("threefry", None, None, 0, 0, 0)
+    with pytest.raises(ValueError, match="slice 3: FE variants, item 12"):
+        tfe.make_draw4("tpu", None, None, 0, 0, 0)
+    with pytest.raises(ValueError, match="unknown counter rng"):
+        tfe.make_draw4("bogus", None, None, 0, 0, 0)
 
 
 @pytest.mark.parametrize("N,base", [(9, 0), (10, 384)])
 def test_wrapper_on_cpu_is_the_plain_version_bitwise(N, base):
+    _wrapper_is_plain(N, base, "philox")
+
+
+def test_threefry4_wrapper_on_cpu_is_the_plain_version_bitwise():
+    _wrapper_is_plain(9, 384, "threefry4")
+
+
+def _wrapper_is_plain(N, base, rng):
     pv = _pv(PARAMS[0])
     key = split_seed(42)
     before = fe_moments_cuda.launches
-    got = fe_moments_cuda(pv, key, 3, base, N=N, n_paths=512, device="cpu")
+    variants = dict(fe_moments_cuda.variant_launches)
+    got = fe_moments_cuda(pv, key, 3, base, N=N, n_paths=512, device="cpu",
+                          rng=rng)
     want = tfe.fe_moments_scan(pv, N, tfe.path_index_grid(512, base), 3,
-                               *key)
+                               *key, rng=rng)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert got[0].dtype == torch.float64
     assert fe_moments_cuda.launches == before   # no kernel was launched
+    assert fe_moments_cuda.variant_launches == variants
 
 
 @pytest.mark.parametrize("kwargs,match", [
@@ -128,6 +160,8 @@ def test_wrapper_on_cpu_is_the_plain_version_bitwise(N, base):
     ({"base_path": -1}, "uint32"),
     ({"seed_words": (2**32, 0)}, "uint32"),
     ({"device": "meta"}, "neither cpu nor cuda"),
+    ({"rng": "tpu"}, "slice 3, item 12"),
+    ({"rng": "threefry"}, "'philox' or 'threefry4'"),
 ])
 def test_wrapper_rejects_bad_arguments(kwargs, match):
     args = dict(params=_pv(PARAMS[0]), seed_words=(1, 2), epoch=0,

@@ -74,7 +74,7 @@ def test_compute_before_init_raises():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"rng": "threefry4"}, "slice 3"),
+    ({"rng": "threefry4", "rot": 2}, "slice 3"),
     ({"rng": "threefry"}, "slice 3"),
     ({"rng": "tpu"}, "slice 3"),
     ({"rng": "mrg32k3a"}, "slice 5"),
@@ -86,6 +86,8 @@ def test_compute_before_init_raises():
     ({"engine": "qmc"}, "slice 6"),
     ({"engine": "pallas"}, "unknown engine"),
     ({"device": "meta"}, "neither cpu nor cuda"),
+    ({"rng": "threefry"}, r"slice 3 \(FE variants\), item 10"),
+    ({"rng": "tpu"}, r"slice 3 \(FE variants\), item 12"),
 ])
 def test_unsupported_options_raise_value_error(kw, match):
     with pytest.raises(ValueError, match=match):
@@ -124,6 +126,18 @@ def test_cuda_engine_on_cpu_equals_scan_engine():
         m.init(5)
         prices.append((m.compute().price, m.compute().price_squared))
     assert prices[0] == prices[1]
+
+
+def test_threefry4_cuda_engine_on_cpu_equals_scan_engine():
+    prices = []
+    for engine in ("cuda", "scan"):
+        m = _pricer(engine=engine, rng="threefry4")
+        m.init(5)
+        prices.append((m.compute().price, m.compute().price_squared))
+    assert prices[0] == prices[1]
+    m = _pricer()
+    m.init(5)
+    assert m.compute().price != prices[0][0]     # philox: another stream
 
 
 def test_params_and_config_cross_package():

@@ -16,7 +16,7 @@ torch.set_num_threads(2)
 
 EDGE_WORDS = np.array([0, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32)
 KERNEL_SRC = (pathlib.Path(__file__).resolve().parents[1]
-              / "nmch_tpu_torch" / "csrc" / "fe_philox.cu")
+              / "nmch_tpu_torch" / "csrc" / "fe_path.cuh")
 
 
 def _words(seed: int, n: int = 1 << 14) -> np.ndarray:
