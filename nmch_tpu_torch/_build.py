@@ -28,7 +28,8 @@ import time
 
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "fe.cu", CSRC / "em.cu", CSRC / "sweep.cu")
+SOURCES = (CSRC / "fe.cu", CSRC / "em.cu", CSRC / "sweep.cu",
+           CSRC / "fe_stateful.cu")
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_ROOT = _PKG.parent / "build" / "nmch_tpu_torch"
 LIB_NAME = "libnmch_tpu_torch.so"
@@ -118,6 +119,18 @@ def load_library() -> tuple[ctypes.CDLL, BuildInfo]:
     lib.nmch_em_sweep_moments.argtypes = (sweep_head + [ctypes.c_int]
                                           + [ctypes.c_void_p] * 5)
     lib.nmch_em_sweep_moments.restype = ctypes.c_int
+    lib.nmch_fe_stateful_moments.argtypes = (
+        [ctypes.c_float] * 8 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+        + [ctypes.c_void_p] * 5)
+    lib.nmch_fe_stateful_moments.restype = ctypes.c_int
+    lib.nmch_stateful_init.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_uint32] * 7
+        + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p])
+    lib.nmch_stateful_init.restype = ctypes.c_int
+    lib.nmch_stateful_advance.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int64]
+        + [ctypes.c_void_p] * 3)
+    lib.nmch_stateful_advance.restype = ctypes.c_int
     lib.nmch_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nmch_cuda_error_string.restype = ctypes.c_char_p
     return lib, info

@@ -4,17 +4,20 @@ Same flags and defaults as ``nmch_tpu/cli.py`` (the reference's
 ``src/NMCH/test/nmch.cu:67-113`` surface with its actual defaults:
 NTPB=512, NB=512, N=1000, seed=1234), except:
 
-* ``--engine cuda|scan`` (default cuda: the hand-written kernels) and
-  ``--device`` (default cuda; never falls back to the CPU);
+* ``--engine cuda|scan`` (default: cuda, the hand-written kernels,
+  except for EM with a stateful family, which only the scan engine runs,
+  as ``nmch_tpu``'s default resolves to scan there) and ``--device``
+  (default cuda; never falls back to the CPU);
 * the RNG and variance-reduction options of later slices (``--rng``
-  threefry and tpu, FE's ``--rot``/``--antithetic``, mrg32k3a/xorwow,
-  ``--scramble``, ``--greeks``) are parser errors that name the
-  ROADMAP.md slice that brings them.
+  threefry and tpu, FE's ``--rot``/``--antithetic``, ``--scramble``,
+  ``--greeks``) are parser errors that name the ROADMAP.md slice that
+  brings them.
 
 Run: ``python -m nmch_tpu_torch.cli`` (the FE main path on the card) or
 ``python -m nmch_tpu_torch.cli --method em`` (the exact scheme, with
 ``--conditional`` and ``--poisson-cut``); both methods take
-``--rng philox|threefry4``.
+``--rng philox|threefry4|xorwow|mrg32k3a`` (FE with xorwow or mrg32k3a
+runs the stateful kernel ``csrc/fe_stateful.cu``).
 """
 
 from __future__ import annotations
@@ -51,16 +54,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--method", choices=["fe", "em"], default="fe",
                    help="fe = Forward Euler (default); em = Broadie-Kaya "
                         "exact simulation")
-    p.add_argument("--engine", choices=["cuda", "scan"], default="cuda",
-                   help="cuda = the hand-written kernel (default); scan = "
+    p.add_argument("--engine", choices=["cuda", "scan"], default=None,
+                   help="cuda = the hand-written kernel (the default, "
+                        "except EM with xorwow/mrg32k3a: scan); scan = "
                         "the plain PyTorch golden")
     p.add_argument("--device", default="cuda",
                    help="torch device for the paths (default: cuda)")
     p.add_argument("--rng", choices=["philox", "threefry", "threefry4",
                                      "tpu", "mrg32k3a", "xorwow"],
                    default="philox",
-                   help="philox or threefry4 (threefry and tpu are "
-                        "ROADMAP.md slice 3, mrg32k3a and xorwow slice 5)")
+                   help="philox, threefry4, or the stateful curand "
+                        "families xorwow and mrg32k3a (threefry and tpu "
+                        "are ROADMAP.md slice 3)")
     p.add_argument("--poisson-cut", type=float, default=None,
                    help="EM only: lambda at and above which the Poisson "
                         "mixture index uses the one-round normal "
@@ -101,6 +106,11 @@ def run(argv=None) -> int:
     if args.greeks:
         parser.error("--greeks is not ported yet (ROADMAP.md Queue 1, "
                      "slice 7: sensitivities)")
+    if args.engine is None:
+        # resolve the default, never downgrade: EM's stateful families
+        # run on the scan engine only (nmch_tpu/cli.py:113-121)
+        args.engine = ("scan" if args.method == "em"
+                       and args.rng in ("mrg32k3a", "xorwow") else "cuda")
     params = HestonParams(T=args.T, S_0=args.S_0, v_0=args.v_0, r=args.r,
                           k=args.k, rho=args.rho, theta=args.theta,
                           sigma=args.sigma)
@@ -117,7 +127,7 @@ def run(argv=None) -> int:
     else:
         if args.rng in ("threefry", "tpu"):
             parser.error(f"--method em does not support --rng {args.rng} "
-                         f"(choose philox/threefry4)")
+                         f"(choose philox/threefry4/mrg32k3a/xorwow)")
         if args.antithetic or args.rot:
             print("note: --antithetic/--rot are FE-only; ignoring",
                   file=sys.stderr)
@@ -128,7 +138,8 @@ def run(argv=None) -> int:
         m = cls(cfg, params, engine=args.engine, rng=args.rng,
                 device=args.device, **kwargs)
     except (ValueError, RuntimeError) as e:
-        # unported options and a missing card surface as parser errors
+        # invalid combinations (e.g. --method em --rng xorwow --engine
+        # cuda), unported options and a missing card are parser errors
         parser.error(str(e))
     m.init(args.seed)
     if not args.no_warmup:

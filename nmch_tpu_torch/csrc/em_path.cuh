@@ -109,8 +109,9 @@ __device__ __forceinline__ float uniform_halfopen01(uint32_t w) {
   return __uint_as_float((w >> 9) | 0x3F800000u) - 1.0f;
 }
 
-// cos(2 pi u), u in (0, 1] (rng/normal.py::sincos_2pi, cosine output)
-__device__ __forceinline__ float cos_2pi(float u) {
+// (cos(2 pi u), sin(2 pi u)), u in (0, 1] (rng/normal.py::sincos_2pi)
+__device__ __forceinline__ void sincos_2pi(float u, float& cos_out,
+                                           float& sin_out) {
   const float x = u * 4.0f;
   const float q = floorf(x + 0.5f);
   const float r = x - q;
@@ -126,8 +127,27 @@ __device__ __forceinline__ float cos_2pi(float u) {
   s = s * r2 + kScSin2;
   s = s * r2 + kScSin3;
   s = s * r;
-  const float base = (qi & 1) ? s : c;
-  return ((qi + 1) & 2) ? -base : base;
+  const float cos_base = (qi & 1) ? s : c;
+  const float sin_base = (qi & 1) ? c : s;
+  cos_out = ((qi + 1) & 2) ? -cos_base : cos_base;
+  sin_out = (qi & 2) ? -sin_base : sin_base;
+}
+
+__device__ __forceinline__ float cos_2pi(float u) {
+  float c, s;
+  sincos_2pi(u, c, s);
+  return c;
+}
+
+// rng/normal.py::boxmuller: two uniforms in (0, 1] -> two N(0,1),
+// r = sqrt(-2 ln u1), (r cos, r sin)(2 pi u2)
+__device__ __forceinline__ void boxmuller(float u1, float u2, float& g1,
+                                          float& g2) {
+  const float r = sqrtf(-2.0f * nm_log(u1));
+  float c, s;
+  sincos_2pi(u2, c, s);
+  g1 = r * c;
+  g2 = r * s;
 }
 
 // First output of rng/normal.py::boxmuller(uniform_open01(w0),

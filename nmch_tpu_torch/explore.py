@@ -17,8 +17,12 @@ per method (``csrc/sweep.cu``, point p at epoch p).  The same flags and
 CSV as ``nmch_tpu.explore``, except:
 
 * ``--engine cuda|scan`` (default cuda: the hand-written kernels) and
-  ``--device`` (default cuda; never falls back to the CPU);
-* ``--rng xorwow|mrg32k3a`` is a parser error naming ROADMAP.md slice 5.
+  ``--device`` (default cuda; never falls back to the CPU).
+
+``--rng xorwow|mrg32k3a`` (the reference's exploration defaults to XORWOW
+for both methods, exploration.cu:24-25,54-55) runs in loop mode only: FE
+launches ``csrc/fe_stateful.cu`` once per point, each pricer's states
+carried from point to point; EM needs ``--engine scan``.
 
 Run: ``python -m nmch_tpu_torch.explore [--batched] [--NB 10]
 [--out sweep.csv]``, then ``python -m nmch_tpu_torch.analysis.heatmap
@@ -185,8 +189,9 @@ def run(argv=None) -> int:
     p.add_argument("--rng", choices=["philox", "threefry4", "xorwow",
                                      "mrg32k3a"],
                    default="philox",
-                   help="counter generator, philox or threefry4 "
-                        "(xorwow/mrg32k3a: ROADMAP.md slice 5)")
+                   help="philox or threefry4; the stateful families "
+                        "xorwow/mrg32k3a in loop mode only (EM with "
+                        "--engine scan)")
     p.add_argument("--conditional", action="store_true",
                    help="batched EM: closed-form conditional payoff "
                         "(CI ~1.9x smaller at the same cost)")
@@ -216,8 +221,13 @@ def run(argv=None) -> int:
     if args.timed_reps < 1:
         p.error("--timed-reps must be >= 1")
     if args.rng in ("xorwow", "mrg32k3a"):
-        p.error(f"--rng {args.rng} is not ported yet (ROADMAP.md Queue 1, "
-                f"slice 5: stateful curand families)")
+        if args.batched:
+            p.error(f"--rng {args.rng} needs loop mode (the batched "
+                    f"sweep kernels use counter streams)")
+        if args.engine != "scan" and "em" in methods:
+            p.error(f"--rng {args.rng} with EM needs --engine scan (the "
+                    f"samplers' state carry has no kernel; FE-only sweeps "
+                    f"run csrc/fe_stateful.cu)")
     try:
         device = resolve_device(args.device)
     except (ValueError, RuntimeError) as e:

@@ -9,8 +9,12 @@ Two engines, as in ``nmch_tpu/methods/em.py``:
 
 Both draw from the counter-based philox or threefry4 streams keyed by
 (seed, path, epoch), bitwise the streams of ``nmch_tpu``.  The stateful
-curand families and the sensitivities are later slices of the port
-(ROADMAP.md Queue 1) and are refused by name until they land.
+curand families xorwow and mrg32k3a (the reference prices EM with XORWOW,
+exploration.cu:54-55) run on the scan engine only, as in ``nmch_tpu``
+(methods/em.py:61-67): each path's recurrence state starts at stream
+(seed, path, epoch) and is carried through the sampler rounds.  The
+sensitivities are a later slice of the port (ROADMAP.md Queue 1) and are
+refused by name until they land.
 """
 
 from __future__ import annotations
@@ -18,13 +22,10 @@ from __future__ import annotations
 from ..ops.em import FAST_POISSON_CUT, em_moments_scan
 from ..ops.em_cuda import em_moments_cuda
 from ..ops.fe import path_index_grid
+from ..ops.sampling import STATEFUL_RNGS
 from ..params import HestonParams, SimConfig
+from ..rng.streams import check_stateful_epoch, check_stateful_paths
 from .base import NMCH
-
-_LATER_RNGS = {
-    "mrg32k3a": "slice 5 (stateful curand families)",
-    "xorwow": "slice 5 (stateful curand families)",
-}
 
 
 class NMCH_EM(NMCH):
@@ -52,12 +53,14 @@ class NMCH_EM(NMCH):
         if engine not in ("cuda", "scan"):
             raise ValueError(f"unknown engine {engine!r} (expected 'cuda' "
                              f"or 'scan')")
-        if rng in _LATER_RNGS:
-            raise ValueError(f"rng={rng!r} is not ported yet (ROADMAP.md "
-                             f"Queue 1, {_LATER_RNGS[rng]})")
-        if rng not in ("philox", "threefry4"):
+        if rng not in ("philox", "threefry4", *STATEFUL_RNGS):
             raise ValueError(f"unknown rng {rng!r} (NMCH_EM supports "
-                             f"philox/threefry4)")
+                             f"philox/threefry4/mrg32k3a/xorwow)")
+        if rng in STATEFUL_RNGS:
+            # the state carry through the rejection samplers has no kernel
+            if engine != "scan":
+                raise ValueError(f"rng={rng!r} requires engine='scan'")
+            check_stateful_paths(rng, cfg.n_paths)
         super().__init__(cfg, params, device)
         self.engine = engine
         self.rng = rng
@@ -73,11 +76,15 @@ class NMCH_EM(NMCH):
                 N=self.cfg.N, n_paths=self.cfg.n_paths, device=self.device,
                 rng=self.rng, conditional=self.conditional,
                 poisson_cut=self.poisson_cut)
+        seed = None
+        if self.rng in STATEFUL_RNGS:
+            check_stateful_epoch(self.rng, epoch)
+            seed = self.streams.seed
         pidx = path_index_grid(self.cfg.n_paths, device=self.device)
         return em_moments_scan(self.params.as_tensor(self.device),
                                self.cfg.N, pidx, epoch, k0, k1,
                                rng=self.rng, conditional=self.conditional,
-                               poisson_cut=self.poisson_cut)
+                               poisson_cut=self.poisson_cut, seed=seed)
 
     def greeks(self, *args, **kwargs) -> dict:
         raise NotImplementedError("EM sensitivities are not ported yet "

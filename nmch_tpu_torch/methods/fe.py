@@ -2,30 +2,34 @@
 
 Two engines, as in ``nmch_tpu/methods/fe.py``:
 
-    engine="cuda" (default) — the hand-written kernel
-                              (ops/fe_cuda.py -> csrc/fe.cu);
-    engine="scan"           — the plain PyTorch golden (ops/fe.py),
-                              the oracle the kernel is held against.
+    engine="cuda" (default) — the hand-written kernels (ops/fe_cuda.py ->
+                              csrc/fe.cu; the stateful families
+                              ops/fe_stateful_cuda.py -> csrc/fe_stateful.cu);
+    engine="scan"           — the plain PyTorch goldens (ops/fe.py,
+                              ops/fe_xorwow.py, ops/fe_mrg.py), the oracles
+                              the kernels are held against.
 
-Both draw from counter-based Philox4x32-10 or Threefry-4x32-12 streams
-keyed by (seed, path, epoch), bitwise the streams of ``nmch_tpu``.  The
-other RNG families, rotation sampling and the QMC engine are later
-slices of the port (ROADMAP.md Queue 1) and are refused by name until
-they land.
+The counter families philox and threefry4 draw from streams keyed by
+(seed, path, epoch); the stateful curand families xorwow (the reference's
+default, random.cu:6-8) and mrg32k3a carry a 6-word state per path, placed
+on the same (seed, path, epoch) layout by skip-ahead.  All are bitwise the
+streams of ``nmch_tpu``.  The other RNG families, rotation sampling and
+the QMC engine are later slices of the port (ROADMAP.md Queue 1) and are
+refused by name until they land.
 """
 
 from __future__ import annotations
 
 from ..ops.fe import fe_moments_scan, path_index_grid
 from ..ops.fe_cuda import fe_moments_cuda
+from ..ops.sampling import STATEFUL_RNGS
 from ..params import HestonParams, SimConfig
+from ..rng.streams import check_stateful_epoch, check_stateful_paths
 from .base import NMCH
 
 _LATER_RNGS = {
     "threefry": "slice 3 (FE variants), item 10",
     "tpu": "slice 3 (FE variants), item 12: the device-PRNG kernel",
-    "mrg32k3a": "slice 5 (stateful curand families)",
-    "xorwow": "slice 5 (stateful curand families)",
 }
 
 
@@ -50,11 +54,17 @@ class NMCH_FE(NMCH):
         if rng in _LATER_RNGS:
             raise ValueError(f"rng={rng!r} is not ported yet (ROADMAP.md "
                              f"Queue 1, {_LATER_RNGS[rng]})")
-        if rng not in ("philox", "threefry4"):
+        if rng not in ("philox", "threefry4", *STATEFUL_RNGS):
             raise ValueError(f"unknown rng {rng!r} (NMCH_FE supports "
-                             f"philox/threefry4)")
+                             f"philox/threefry4/mrg32k3a/xorwow)")
         if rot not in (None, 1, 2, 4, 8):
             raise ValueError(f"rot must be 1, 2, 4 or 8, got {rot}")
+        if rng in STATEFUL_RNGS:
+            if antithetic or rot not in (None, 1):
+                raise ValueError(f"rng={rng!r} has no rot/antithetic "
+                                 f"variants (parity family; use the "
+                                 f"counter rngs for rotation sampling)")
+            check_stateful_paths(rng, cfg.n_paths)
         if antithetic or rot not in (None, 1):
             raise ValueError("rotation sampling (antithetic / rot 2, 4, 8) "
                              "is not ported yet (ROADMAP.md Queue 1, "
@@ -62,8 +72,31 @@ class NMCH_FE(NMCH):
         super().__init__(cfg, params, device)
         self.engine = engine
         self.rng = rng
+        self._drop_state()
+
+    def _drop_state(self) -> None:
+        """Forget the carried per-path states (engine="cuda", stateful
+        rng): they are reused only when seed, epoch and n_paths line up
+        (``_stateful_moments``)."""
+        self._state = None
+        self._state_epoch = 0
+        self._state_seed = None
+        self._state_offset = 0
+
+    def init(self, seed: int | None = None) -> None:
+        super().init(seed)
+        self._drop_state()
+
+    def load_state(self, path: str) -> None:
+        super().load_state(path)
+        self._drop_state()
 
     def _moments(self, epoch: int):
+        if self.rng in STATEFUL_RNGS:
+            check_stateful_epoch(self.rng, epoch)
+            if self.engine == "cuda":
+                return self._stateful_moments(epoch)
+            return self._stateful_scan(epoch)
         k0, k1 = self.streams.key_words
         if self.engine == "cuda":
             return fe_moments_cuda(
@@ -73,3 +106,52 @@ class NMCH_FE(NMCH):
         pidx = path_index_grid(self.cfg.n_paths, device=self.device)
         return fe_moments_scan(self.params.as_tensor(self.device),
                                self.cfg.N, pidx, epoch, k0, k1, rng=self.rng)
+
+    def _stateful_scan(self, epoch: int):
+        if self.rng == "xorwow":
+            from ..ops.fe_xorwow import fe_moments_xorwow as golden
+        else:
+            from ..ops.fe_mrg import fe_moments_mrg as golden
+        pidx = path_index_grid(self.cfg.n_paths, device=self.device)
+        return golden(self.params.as_tensor(self.device), self.cfg.N, pidx,
+                      epoch, self.streams.seed)
+
+    def _stateful_moments(self, epoch: int):
+        """K5 with the scan engine's stream contract: epoch e's draws start
+        at e * 2^40 within each path's block, so both engines price
+        bitwise alike at every epoch and a (seed, epoch) checkpoint
+        resumes identically on either.  The state the kernel wrote back
+        (D = draws_per_compute(N) steps into epoch e-1) rides to epoch
+        e's start by one jump when seed, epoch and n_paths line up;
+        anything else (a fresh pricer, init, load_state, a seed change)
+        rebuilds from (seed, epoch)."""
+        from ..ops.fe_stateful import draws_per_compute, epoch_stride, \
+            host_jump_table
+        from ..ops.fe_stateful_cuda import advance_state_cuda, \
+            fe_stateful_moments_cuda, fe_stateful_state_cuda
+        D = draws_per_compute(self.cfg.N)
+        stride = epoch_stride(self.rng)
+        if D >= stride:
+            # a run would draw past the next epoch's first step
+            raise ValueError(f"N={self.cfg.N} draws {D} steps per path, "
+                             f"not fewer than the {stride} between epochs")
+        seed = self.streams.seed
+        if (self._state is not None and self._state_epoch == epoch
+                and self._state_seed == seed
+                and self._state.shape[1] == self.cfg.n_paths):
+            st = advance_state_cuda(self.rng, self._state,
+                                    stride - self._state_offset)
+        else:
+            st = fe_stateful_state_cuda(self.rng, seed, self.cfg.n_paths,
+                                        epoch, self.device)
+            # the next run's boundary jump: its exact host matrix power
+            # (a fraction of a second for XORWOW, cached) lands here, in
+            # the run that also builds the states, not in the next one
+            host_jump_table(self.rng, stride - D)
+        m, m2, st_new = fe_stateful_moments_cuda(
+            self.params.as_tensor("cpu"), st, N=self.cfg.N, rng=self.rng)
+        self._state = st_new
+        self._state_epoch = epoch + 1
+        self._state_seed = seed
+        self._state_offset = D
+        return m, m2

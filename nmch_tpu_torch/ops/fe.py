@@ -102,19 +102,27 @@ def fe_terminal(params_vec, N: int, path_idx, epoch, k0, k1,
     broadcast against ``path_idx`` (``ops/sweep.py``: params (8, P, 1,
     1), epoch (P, 1, 1), path_idx (R, 128)); every float operation is
     then the single-point one, elementwise."""
+    draw = make_draw4(rng, path_idx, torch.zeros_like(path_idx), epoch,
+                      k0, k1)
+    return euler_paths(params_vec, N, path_idx,
+                       lambda j: normal4_from_bits(*draw(j)))
+
+
+def euler_paths(params_vec, N: int, like: torch.Tensor, normals4):
+    """(S_T, v_T) of paths laid out like ``like`` (its shape and device):
+    ``normals4(j)`` gives the 4 normals of counter block j, for steps 2j
+    and 2j+1, and is called for j = 0, 1, ... in order."""
     T, S_0, v_0, r, k, rho, theta, sigma = params_vec.unbind()
     dt = T / N
     sqrt_dt = sqrt_f32(dt)
     sqrt_rho_c = sqrt_f32(1.0 - rho * rho)
     cst = fe_consts(r, k, theta, sigma, rho, sqrt_rho_c, dt, sqrt_dt)
 
-    draw = make_draw4(rng, path_idx, torch.zeros_like(path_idx), epoch,
-                      k0, k1)
-    ones = torch.full(path_idx.shape, 1.0, device=path_idx.device)
+    ones = torch.full(like.shape, 1.0, device=like.device)
     S = ones * S_0
     v = ones * v_0
     for j in range((N + 1) // 2):
-        g0, g1, g2, g3 = normal4_from_bits(*draw(j))
+        g0, g1, g2, g3 = normals4(j)
         S, v = fe_two_steps(S, v, g0, g1, g2, g3, j, cst, N)
     return S, v
 

@@ -1,6 +1,6 @@
-"""Poisson and Gamma samplers on per-path counter streams (plain PyTorch).
+"""Poisson and Gamma samplers on per-path streams (plain PyTorch).
 
-The counter-rng half of ``nmch_tpu/ops/sampling.py``, which rebuilds the
+The counterpart of ``nmch_tpu/ops/sampling.py``, which rebuilds the
 reference EM kernel's per-thread samplers (``NMCH_EM.cu:11-55,102,325``):
 
 * Poisson(lam): Knuth's multiplication below lam = 10, Hörmann's PTRS
@@ -27,6 +27,15 @@ takes another accept/reject decision than JAX's), on a CUDA tensor they
 are the libdevice functions that the kernel calls.
 
 u32 words and counters are carried in int64, as in ``rng/philox.py``.
+
+The stateful families (xorwow, mrg32k3a) draw the same way from a lane's
+recurrence state instead of its counter: ``stream_state_init`` gives the
+6-word state of stream (seed, path, epoch), a round's block is four
+successive recurrence outputs, and the state advances only while the
+lane is active (``_sel``).  The samplers take the raw output words
+through ``uniform_open01``/``uniform_halfopen01``, MRG32k3a's z in
+[0, m1) directly, as ``nmch_tpu`` does; the FE goldens use
+``u01_from_out``/``u01_from_z`` instead.
 """
 
 from __future__ import annotations
@@ -94,15 +103,50 @@ def make_lane_draw4(rng: str):
         return lambda ctr, ep, lo, hi, k0, k1: \
             draw4_threefry4(ctr, ep, lo, k0, k1, path_hi=hi)
     if rng in STATEFUL_RNGS:
-        raise ValueError(f"rng={rng!r} is not ported yet (ROADMAP.md "
-                         f"Queue 1, slice 5: stateful curand families)")
+        raise ValueError(f"rng={rng!r} is a stateful family: it draws "
+                         f"from a lane's state (make_stream_draw4), not "
+                         f"at a counter")
     raise ValueError(f"unknown lane rng {rng!r} (expected 'philox' or "
                      f"'threefry4')")
 
 
+def _sel(pred, new, old):
+    """Per-lane select over a stream state (a tensor or a tuple of)."""
+    if isinstance(new, tuple):
+        return tuple(torch.where(pred, n, o) for n, o in zip(new, old))
+    return torch.where(pred, new, old)
+
+
 def make_stream_draw4(rng: str, epoch, path_lo, path_hi, k0, k1):
-    """``draw4s(ctr) -> (w0, w1, w2, w3, ctr + 1)`` for the counter
-    families (philox/threefry4)."""
+    """``draw4s(st) -> (w0, w1, w2, w3, st_next)`` over all four families.
+
+    Counter families (philox/threefry4): st is the lane's u32 block
+    counter and st_next = st + 1.  Stateful families: st is the flat
+    6-tuple of recurrence state words and the four words are four
+    successive recurrence outputs (curand's per-thread order,
+    ``NMCH_EM.cu:96-124``)."""
+    if rng == "mrg32k3a":
+        from ..rng.mrg32k3a import mrg_step
+
+        def draw4s(st):
+            s1, s2 = st[:3], st[3:]
+            ws = []
+            for _ in range(4):
+                z, s1, s2 = mrg_step(s1, s2)
+                ws.append(z)
+            return (*ws, s1 + s2)
+        return draw4s
+    if rng == "xorwow":
+        from ..rng.xorwow import xorwow_step
+
+        def draw4s(st):
+            s, d = st[:5], st[5]
+            ws = []
+            for _ in range(4):
+                o, s, d = xorwow_step(s, d)
+                ws.append(o)
+            return (*ws, s + (d,))
+        return draw4s
     draw4 = make_lane_draw4(rng)
 
     def draw4s(ctr):
@@ -111,14 +155,30 @@ def make_stream_draw4(rng: str, epoch, path_lo, path_hi, k0, k1):
     return draw4s
 
 
+def stream_state_init(rng: str, seed: int, path_lo, epoch: int):
+    """Initial state of a stateful family's stream (seed, path, epoch):
+    the flat 6-tuple ``make_stream_draw4`` advances, each word shaped like
+    path_lo (one skip-ahead per path)."""
+    if rng == "mrg32k3a":
+        from ..rng.mrg32k3a import mrg_state_at
+        s1, s2 = mrg_state_at(seed, path_lo, epoch)
+        return s1 + s2
+    if rng == "xorwow":
+        from ..rng.xorwow import xorwow_state_at
+        s, d = xorwow_state_at(seed, path_lo, epoch)
+        return s + (d,)
+    raise ValueError(f"{rng!r} is not a stateful family")
+
+
 def poisson_from_stream(lam, ctr, epoch, path_lo, path_hi, k0, k1,
                         max_rounds: int = 64, rng: str = "philox",
                         large_cut: float | None = None):
     """N_p ~ Poisson(lam) per lane; returns (N_p float32, new ctr).
 
     lam: float32 tensor; ctr: int64 tensor of u32 block counters, of the
-    same shape.  large_cut: lam at and above which the normal
-    approximation replaces PTRS (None = 4000, curand's switch)."""
+    same shape, or for a stateful rng the 6-tuple of state words.
+    large_cut: lam at and above which the normal approximation replaces
+    PTRS (None = 4000, curand's switch)."""
     draw4s = make_stream_draw4(rng, epoch, path_lo, path_hi, k0, k1)
     cut = float(_F32(POISSON_LARGE if large_cut is None else large_cut))
     small = lam < POISSON_SMALL
@@ -176,7 +236,7 @@ def poisson_from_stream(lam, ctr, epoch, path_lo, path_hi, k0, k1,
             kd = torch.where(small, torch.clamp_min(cnt - 1.0, 0.0), kd)
 
         result = torch.where(active & done, kd, result)
-        ctr = torch.where(active, c_next, ctr)
+        ctr = _sel(active, c_next, ctr)
         active = active & ~done
         rnd += 1
     # straggler fallback (P < 1e-12/lane): distribution mode
@@ -217,7 +277,7 @@ def gamma_ms_from_stream(alpha0, ctr, epoch, path_lo, path_hi, k0, k1,
                 need_boost,
                 torch.exp(torch.log(uniform_open01(w3)) / alpha0), 1.0)
         result = torch.where(active & ok, d * v * C, result)
-        ctr = torch.where(active, c_next, ctr)
+        ctr = _sel(active, c_next, ctr)
         active = active & ~ok
         rnd += 1
     # straggler fallback: distribution mean

@@ -46,3 +46,34 @@ class PathStreams:
     def from_state_dict(cls, d: dict) -> "PathStreams":
         return cls(seed=int(d["seed"]), n_paths=int(d["n_paths"]),
                    epoch=int(d["epoch"]))
+
+
+def stateful_max_epoch(rng: str) -> int:
+    """Epochs per path block of a stateful family's stream layout
+    (2^(PATH_LOG2 - EPOCH_LOG2), 2^27 for both): the method layer's
+    bound, from the family's own constants."""
+    if rng == "mrg32k3a":
+        from .mrg32k3a import MAX_EPOCH
+    elif rng == "xorwow":
+        from .xorwow import MAX_EPOCH
+    else:
+        raise ValueError(f"{rng!r} is not a stateful family")
+    return MAX_EPOCH
+
+
+def check_stateful_paths(rng: str, n_paths: int) -> None:
+    """Raise unless n_paths fits the stateful stream layout: the jump
+    tables cover path-index bits 0..30, larger indices would alias onto
+    lower streams."""
+    if n_paths >= (1 << 31):
+        raise ValueError(f"rng={rng!r} supports n_paths < 2^31 (stream "
+                         f"layout, rng/{rng}.py docstring); got {n_paths}")
+
+
+def check_stateful_epoch(rng: str, epoch: int) -> None:
+    """Raise unless ``epoch`` lies inside ``rng``'s stream layout."""
+    bound = stateful_max_epoch(rng)
+    if int(epoch) >= bound:
+        raise ValueError(f"epoch={int(epoch)} exceeds the {rng} stream "
+                         f"layout's {bound} epochs per path block "
+                         f"(rng/{rng}.py docstring)")

@@ -57,12 +57,15 @@ def test_defaults_match_nmch_tpu():
     assert (a.NTPB, a.NB, a.N, a.seed) == (512, 512, 1000, 1234)
     assert (a.T, a.S_0, a.v_0, a.r) == (1.0, 1.0, 0.1, 0.0)
     assert (a.k, a.rho, a.theta, a.sigma) == (0.5, -0.7, 0.1, 0.3)
+    # engine None resolves in run(): cuda, or scan for EM with a stateful
+    # family, as nmch_tpu's None resolves to pallas or scan
     assert (a.method, a.engine, a.device, a.rng) == \
-        ("fe", "cuda", "cuda", "philox")
+        ("fe", None, "cuda", "philox")
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--method", "em", "--rng", "xorwow"], "slice 5"),
+    (["--method", "em", "--rng", "xorwow", "--engine", "cuda"],
+     "requires engine='scan'"),
     (["--method", "em", "--rng", "tpu"], "does not support"),
     (["--method", "em", "--greeks"], "slice 7"),
     (["--rng", "threefry4", "--rot", "2"], "slice 3"),

@@ -18,6 +18,9 @@ from nmch_tpu_torch.ops.sweep import em_sweep_plain, fe_sweep_plain
 from nmch_tpu_torch.ops.sweep_cuda import em_sweep_cuda, fe_sweep_cuda
 from nmch_tpu_torch.oracle import heston_call_undiscounted
 from nmch_tpu_torch.explore import grid_params, grid_points
+from nmch_tpu_torch.ops import fe_stateful as plain_stateful
+from nmch_tpu_torch.ops.fe_stateful_cuda import advance_state_cuda, \
+    fe_stateful_moments_cuda, fe_stateful_state_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -141,3 +144,51 @@ def test_em_sweep_matches_plain_and_single_point_kernel(dev, rng,
             pv, key, (epoch0 + i) % 2**32, 0, N=16, n_paths=1 << 12,
             device=dev, rng=rng, conditional=conditional, poisson_cut=128.0))
         assert torch.equal(k[:, i], one)
+
+
+@pytest.mark.parametrize("rng,N,epoch", [("xorwow", 11, 0),
+                                         ("mrg32k3a", 12, 3)])
+def test_stateful_kernel_matches_plain_and_is_deterministic(dev, rng, N,
+                                                            epoch):
+    """K5 and the jump kernels: states bitwise the plain versions', the
+    advanced state jumped by epoch_stride - D bitwise the next epoch's
+    start, moments at rel 1e-6 (float64 sums in another order), repeats
+    bitwise."""
+    pv = HestonParams().as_tensor("cpu")
+    n = 1 << 13
+    st = fe_stateful_state_cuda(rng, 1234, n, epoch, dev)
+    sp = plain_stateful.fe_stateful_state(rng, 1234, n, epoch, dev)
+    assert torch.equal(st, sp)
+    before = fe_stateful_moments_cuda.launches
+    m, m2, s1 = fe_stateful_moments_cuda(pv, st, N=N, rng=rng)
+    a, a2, s1b = fe_stateful_moments_cuda(pv, st, N=N, rng=rng)
+    assert fe_stateful_moments_cuda.launches == before + 2
+    k = torch.stack([m, m2])
+    assert torch.equal(k, torch.stack([a, a2])) and torch.equal(s1, s1b)
+    pm, pm2, ps1 = plain_stateful.fe_moments_stateful_plain(pv.to(dev), sp,
+                                                            N, rng)
+    assert torch.equal(s1, ps1)
+    torch.testing.assert_close(k, torch.stack([pm, pm2]), rtol=1e-6, atol=0)
+    steps = plain_stateful.epoch_stride(rng) - \
+        plain_stateful.draws_per_compute(N)
+    nxt = advance_state_cuda(rng, s1, steps)
+    assert torch.equal(nxt, plain_stateful.advance_state(rng, ps1, steps))
+    assert torch.equal(nxt, fe_stateful_state_cuda(rng, 1234, n, epoch + 1,
+                                                   dev))
+
+
+@pytest.mark.parametrize("rng", ["xorwow", "mrg32k3a"])
+def test_stateful_engines_agree_and_price_within_oracle_bar(dev, rng):
+    """The carried-state cuda engine equals the scan engine (plain golden on
+    the card) bitwise in the moments' inputs: equal prices at rel 1e-12
+    (the float64 sums run in another order) at epochs 0-2."""
+    cfg = SimConfig(NB=16, N=50)
+    mc = NMCH_FE(cfg, HestonParams(), rng=rng, device=dev)
+    ms = NMCH_FE(cfg, HestonParams(), engine="scan", rng=rng, device=dev)
+    mc.init(1234)
+    ms.init(1234)
+    for _ in range(3):
+        rc, rs = mc.compute(), ms.compute()
+        assert abs(rc.price - rs.price) <= 1e-12 * rs.price
+    bar = 3 * rc.ci_error + 2e-3
+    assert abs(rc.price - heston_call_undiscounted(mc.params)) <= bar

@@ -90,8 +90,8 @@ def test_loop_mode_timed_reps_and_engine_cuda_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--rng", "xorwow"], "slice 5"),
-    (["--rng", "mrg32k3a", "--batched"], "slice 5"),
+    (["--rng", "xorwow"], "with EM needs --engine scan"),
+    (["--rng", "mrg32k3a", "--batched"], "needs loop mode"),
     (["--batched", "--timed-reps", "2"], "loop mode only"),
     (["--timed-reps", "0"], ">= 1"),
     (["--methods", "fe,bogus"], "unknown method"),

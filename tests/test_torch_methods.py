@@ -77,8 +77,8 @@ def test_compute_before_init_raises():
     ({"rng": "threefry4", "rot": 2}, "slice 3"),
     ({"rng": "threefry"}, "slice 3"),
     ({"rng": "tpu"}, "slice 3"),
-    ({"rng": "mrg32k3a"}, "slice 5"),
-    ({"rng": "xorwow"}, "slice 5"),
+    ({"rng": "mrg32k3a", "rot": 2}, "no rot/antithetic"),
+    ({"rng": "xorwow", "antithetic": True}, "no rot/antithetic"),
     ({"rng": "bogus"}, "unknown rng"),
     ({"rot": 4}, "slice 3"),
     ({"rot": 3}, "rot must be"),
@@ -266,8 +266,8 @@ def test_em_print_stats_byte_identical_to_nmch_tpu():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"rng": "mrg32k3a"}, "slice 5"),
-    ({"rng": "xorwow"}, "slice 5"),
+    ({"rng": "mrg32k3a", "engine": "cuda"}, "requires engine='scan'"),
+    ({"rng": "xorwow", "engine": "cuda"}, "requires engine='scan'"),
     ({"rng": "tpu"}, "unknown rng"),
     ({"rng": "threefry"}, "unknown rng"),
     ({"engine": "pallas"}, "unknown engine"),

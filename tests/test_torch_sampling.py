@@ -148,11 +148,20 @@ def test_ptrs_log_accept_rhs_matches_nmch_tpu(lam):
 
 
 @pytest.mark.parametrize("rng,match", [
-    ("mrg32k3a", "slice 5"), ("xorwow", "slice 5"), ("tpu", "unknown"),
+    ("mrg32k3a", "stateful family"), ("xorwow", "stateful family"),
+    ("tpu", "unknown"),
 ])
 def test_lane_draw_refuses_other_rngs(rng, match):
+    """No lane draw at a counter for a stateful family (it draws from a
+    state, make_stream_draw4) or an unknown rng; the stream draw takes the
+    stateful families and refuses the rest."""
     with pytest.raises(ValueError, match=match):
         ts.make_lane_draw4(rng)
+    if rng in ts.STATEFUL_RNGS:
+        st = tuple(_t(np.array([1, 2, 3])) for _ in range(6))
+        *ws, nxt = ts.make_stream_draw4(rng, 0, 0, 0, 0, 0)(st)
+        assert len(ws) == 4 and len(nxt) == 6
+        return
     with pytest.raises(ValueError, match=match):
         ts.make_stream_draw4(rng, 0, 0, 0, 0, 0)
 
