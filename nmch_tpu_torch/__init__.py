@@ -12,7 +12,8 @@ imports torch, numpy and scipy, never jax.
     m.print_stats()
     m.finalize()
 
-``NMCH_EM`` (the Broadie–Kaya exact scheme) has the same lifecycle.
+``NMCH_EM`` (the Broadie–Kaya exact scheme) has the same lifecycle, as
+has ``NMCH_FE(..., engine="qmc")`` (randomized quasi-Monte Carlo).
 The entry points are the modules ``cli`` (one pricing run) and
 ``explore`` (the (k, theta, sigma) sweep), each runnable with
 ``python -m``.

@@ -4,20 +4,21 @@ Same flags and defaults as ``nmch_tpu/cli.py`` (the reference's
 ``src/NMCH/test/nmch.cu:67-113`` surface with its actual defaults:
 NTPB=512, NB=512, N=1000, seed=1234), except:
 
-* ``--engine cuda|scan`` (default: cuda, the hand-written kernels,
+* ``--engine cuda|scan|qmc`` (default: cuda, the hand-written kernels,
   except for EM with a stateful family, which only the scan engine runs,
-  as ``nmch_tpu``'s default resolves to scan there) and ``--device``
-  (default cuda; never falls back to the CPU);
+  as ``nmch_tpu``'s default resolves to scan there; qmc is FE only) and
+  ``--device`` (default cuda; never falls back to the CPU);
 * the RNG and variance-reduction options of later slices (``--rng``
-  threefry and tpu, FE's ``--rot``/``--antithetic``, ``--scramble``,
-  ``--greeks``) are parser errors that name the ROADMAP.md slice that
-  brings them.
+  threefry and tpu, FE's ``--rot``/``--antithetic``, ``--greeks``) are
+  parser errors that name the ROADMAP.md slice that brings them.
 
 Run: ``python -m nmch_tpu_torch.cli`` (the FE main path on the card) or
 ``python -m nmch_tpu_torch.cli --method em`` (the exact scheme, with
 ``--conditional`` and ``--poisson-cut``); both methods take
 ``--rng philox|threefry4|xorwow|mrg32k3a`` (FE with xorwow or mrg32k3a
-runs the stateful kernel ``csrc/fe_stateful.cu``).
+runs the stateful kernel ``csrc/fe_stateful.cu``); ``--engine qmc
+[--scramble auto|lms-shift|shift|owen]`` prices FE by randomized QMC
+(kernel ``csrc/qmc.cu``) and adds the RQMC CI to the stats block.
 """
 
 from __future__ import annotations
@@ -54,10 +55,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--method", choices=["fe", "em"], default="fe",
                    help="fe = Forward Euler (default); em = Broadie-Kaya "
                         "exact simulation")
-    p.add_argument("--engine", choices=["cuda", "scan"], default=None,
+    p.add_argument("--engine", choices=["cuda", "scan", "qmc"],
+                   default=None,
                    help="cuda = the hand-written kernel (the default, "
                         "except EM with xorwow/mrg32k3a: scan); scan = "
-                        "the plain PyTorch golden")
+                        "the plain PyTorch golden; qmc = scrambled Sobol' "
+                        "+ Brownian bridge (FE only; error ~ n^-0.8)")
     p.add_argument("--device", default="cuda",
                    help="torch device for the paths (default: cuda)")
     p.add_argument("--rng", choices=["philox", "threefry", "threefry4",
@@ -83,7 +86,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scramble", choices=["auto", "lms-shift", "shift",
                                           "owen"],
                    default="auto",
-                   help="QMC randomization (ROADMAP.md slice 6)")
+                   help="QMC randomization (--engine qmc only): auto "
+                        "(default; lms-shift below 2^21 points, owen "
+                        "from there), lms-shift, shift, or owen "
+                        "(hash-based Owen scrambles, independent per "
+                        "replicate)")
     p.add_argument("--oracle", action="store_true",
                    help="also print the semi-analytic Heston price")
     p.add_argument("--greeks", action="store_true",
@@ -100,9 +107,6 @@ def build_parser() -> argparse.ArgumentParser:
 def run(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.scramble != "auto":
-        parser.error("--scramble belongs to the QMC engine, which is not "
-                     "ported yet (ROADMAP.md Queue 1, slice 6: QMC)")
     if args.greeks:
         parser.error("--greeks is not ported yet (ROADMAP.md Queue 1, "
                      "slice 7: sensitivities)")
@@ -111,6 +115,14 @@ def run(argv=None) -> int:
         # run on the scan engine only (nmch_tpu/cli.py:113-121)
         args.engine = ("scan" if args.method == "em"
                        and args.rng in ("mrg32k3a", "xorwow") else "cuda")
+    if args.method == "em" and args.engine == "qmc":
+        parser.error("--engine qmc is FE-only (the Sobol'/Brownian-"
+                     "bridge construction has no EM analogue)")
+    if args.scramble != "auto" and (args.method != "fe"
+                                    or args.engine != "qmc"):
+        print("note: --scramble applies to --method fe --engine qmc "
+              "only; ignoring", file=sys.stderr)
+        args.scramble = "auto"
     params = HestonParams(T=args.T, S_0=args.S_0, v_0=args.v_0, r=args.r,
                           k=args.k, rho=args.rho, theta=args.theta,
                           sigma=args.sigma)
@@ -123,7 +135,8 @@ def run(argv=None) -> int:
             print("note: --poisson-cut is EM-only; ignoring",
                   file=sys.stderr)
         cls = NMCH_FE
-        kwargs = {"antithetic": args.antithetic, "rot": args.rot}
+        kwargs = {"antithetic": args.antithetic, "rot": args.rot,
+                  "scramble": args.scramble}
     else:
         if args.rng in ("threefry", "tpu"):
             parser.error(f"--method em does not support --rng {args.rng} "
@@ -152,7 +165,9 @@ def run(argv=None) -> int:
             "method": args.method, "engine": args.engine,
             "n_paths": cfg.n_paths, "N": cfg.N, "seed": args.seed,
             "price": res.price, "price_squared": res.price_squared,
-            "err": res.err,
+            # null for the QMC engine: the reference err formula has no
+            # meaning for its synthesized moments
+            "err": None if res.synthesized_moments else res.err,
             "ci_error": res.ci_error,
             "exec_time_ms": res.exec_time_ms,
             "init_time_ms": m.init_time_ms,
@@ -162,6 +177,11 @@ def run(argv=None) -> int:
         print(json.dumps(rec))
     else:
         m.print_stats()
+        if args.engine == "qmc":
+            # the honest accuracy of the QMC engine: the t-quantile CI
+            # over the randomized replicates
+            print(f"RQMC 95% CI (shift-replicate spread): "
+                  f"{res.ci_error:e}")
         if args.oracle:
             print(f"Semi-analytic Heston price (undiscounted): "
                   f"{heston_call_undiscounted(params):f}")

@@ -1,5 +1,5 @@
 // One forward-Euler Heston path per thread: the device half of fe.cu (K1)
-// and sweep.cu (K3).
+// and sweep.cu (K3); fe_stateful.cu (K5) and qmc.cu (K6) take its steps.
 //
 // Operation for operation the plain PyTorch version (nmch_tpu_torch/ops/
 // fe.py): counter block j of a path's stream gives 4 u32 words, the words
@@ -47,10 +47,10 @@ struct FeConsts {
   float A, B, C, rho_sd, rhoc_sd, one_rdt;
 };
 
-// ops/fe.py::fe_terminal's constants, in its order
-__device__ __forceinline__ FeConsts fe_consts(const FeParams& p, int N) {
-  const float dt = p.T / (float)N;
-  const float sqrt_dt = sqrtf(dt);
+// ops/fe.py::fe_consts at step dt with normals scaled by sqrt_dt, in its
+// order (the QMC kernel passes sqrt_dt = 1: its increments carry sqrt(dt))
+__device__ __forceinline__ FeConsts fe_consts(const FeParams& p, float dt,
+                                              float sqrt_dt) {
   const float sqrt_rho_c = sqrtf(1.0f - p.rho * p.rho);
   FeConsts c;
   c.A = p.k * p.theta * dt;
@@ -60,6 +60,12 @@ __device__ __forceinline__ FeConsts fe_consts(const FeParams& p, int N) {
   c.rhoc_sd = sqrt_rho_c * sqrt_dt;
   c.one_rdt = 1.0f + p.r * dt;
   return c;
+}
+
+// ops/fe.py::euler_paths's constants: dt = T / N, sqrt_dt = sqrt(dt)
+__device__ __forceinline__ FeConsts fe_consts(const FeParams& p, int N) {
+  const float dt = p.T / (float)N;
+  return fe_consts(p, dt, sqrtf(dt));
 }
 
 // -2 ln(u) for u in (0, 1], from u's bits (rng/normal.py::neg2log)

@@ -1,27 +1,33 @@
 """Forward-Euler pricing method (reference L4: the NMCH_FE_* family).
 
-Two engines, as in ``nmch_tpu/methods/fe.py``:
+Three engines, as in ``nmch_tpu/methods/fe.py``:
 
     engine="cuda" (default) — the hand-written kernels (ops/fe_cuda.py ->
                               csrc/fe.cu; the stateful families
                               ops/fe_stateful_cuda.py -> csrc/fe_stateful.cu);
     engine="scan"           — the plain PyTorch goldens (ops/fe.py,
                               ops/fe_xorwow.py, ops/fe_mrg.py), the oracles
-                              the kernels are held against.
+                              the kernels are held against;
+    engine="qmc"            — scrambled Sobol' points and a Brownian bridge
+                              (ops/fe_qmc.py), paths simulated by the kernel
+                              ops/fe_qmc_cuda.py -> csrc/qmc.cu; its moments
+                              are synthesized from the replicate spread, so
+                              only ``ci_error`` is meaningful.
 
 The counter families philox and threefry4 draw from streams keyed by
 (seed, path, epoch); the stateful curand families xorwow (the reference's
 default, random.cu:6-8) and mrg32k3a carry a 6-word state per path, placed
 on the same (seed, path, epoch) layout by skip-ahead.  All are bitwise the
-streams of ``nmch_tpu``.  The other RNG families, rotation sampling and
-the QMC engine are later slices of the port (ROADMAP.md Queue 1) and are
-refused by name until they land.
+streams of ``nmch_tpu``.  The other RNG families and rotation sampling
+are later slices of the port (ROADMAP.md Queue 1) and are refused by
+name until they land.
 """
 
 from __future__ import annotations
 
 from ..ops.fe import fe_moments_scan, path_index_grid
 from ..ops.fe_cuda import fe_moments_cuda
+from ..ops.fe_qmc import SCRAMBLES, fe_moments_qmc
 from ..ops.sampling import STATEFUL_RNGS
 from ..params import HestonParams, SimConfig
 from ..rng.streams import check_stateful_epoch, check_stateful_paths
@@ -41,16 +47,36 @@ class NMCH_FE(NMCH):
     def __init__(self, cfg: SimConfig, params: HestonParams,
                  engine: str = "cuda", rng: str = "philox",
                  antithetic: bool = False, rot: int | None = None,
-                 device="cuda"):
+                 device="cuda", scramble: str = "auto"):
         """device: where the paths run.  "cuda" needs a card and never
-        falls back to the CPU; engine="cuda" on device="cpu" runs the
-        kernel wrapper's plain version."""
+        falls back to the CPU; engine="cuda" or "qmc" on device="cpu" runs
+        the kernel wrapper's plain version.  scramble (engine="qmc"):
+        "auto" (lms-shift below 2^21 paths, owen from there), "lms-shift",
+        "shift" or "owen"."""
+        if engine not in ("cuda", "scan", "qmc"):
+            raise ValueError(f"unknown engine {engine!r} (expected 'cuda', "
+                             f"'scan' or 'qmc')")
         if engine == "qmc":
-            raise ValueError("engine='qmc' is not ported yet (ROADMAP.md "
-                             "Queue 1, slice 6: QMC)")
-        if engine not in ("cuda", "scan"):
-            raise ValueError(f"unknown engine {engine!r} (expected 'cuda' "
-                             f"or 'scan')")
+            if rot not in (None, 1) or antithetic:
+                raise ValueError("engine='qmc' has no rot/antithetic "
+                                 "variants (the point set is already "
+                                 "variance-optimal)")
+            if rng != "philox":
+                raise ValueError("engine='qmc' uses Sobol' points with "
+                                 "Philox digital shifts; rng must stay "
+                                 "'philox'")
+            if scramble != "auto" and scramble not in SCRAMBLES:
+                raise ValueError(f"unknown scramble {scramble!r}")
+            if scramble == "auto":
+                # nmch_tpu's measured crossover: the shared LMS scramble's
+                # CI decay stalls beyond ~2^21 points, independent Owen
+                # scrambles per replicate keep it going
+                scramble = ("owen" if cfg.n_paths >= (1 << 21)
+                            else "lms-shift")
+        elif scramble not in ("auto", "lms-shift"):
+            raise ValueError("scramble= applies to engine='qmc' only")
+        else:
+            scramble = "lms-shift"
         if rng in _LATER_RNGS:
             raise ValueError(f"rng={rng!r} is not ported yet (ROADMAP.md "
                              f"Queue 1, {_LATER_RNGS[rng]})")
@@ -72,6 +98,8 @@ class NMCH_FE(NMCH):
         super().__init__(cfg, params, device)
         self.engine = engine
         self.rng = rng
+        self.scramble = scramble
+        self.synthesized_moments = engine == "qmc"
         self._drop_state()
 
     def _drop_state(self) -> None:
@@ -98,6 +126,11 @@ class NMCH_FE(NMCH):
                 return self._stateful_moments(epoch)
             return self._stateful_scan(epoch)
         k0, k1 = self.streams.key_words
+        if self.engine == "qmc":
+            return fe_moments_qmc(
+                self.params.as_tensor("cpu"), epoch, k0, k1, N=self.cfg.N,
+                n_paths=self.cfg.n_paths, sim="cuda",
+                scramble=self.scramble, device=self.device)
         if self.engine == "cuda":
             return fe_moments_cuda(
                 self.params.as_tensor("cpu"), (k0, k1), epoch, 0,

@@ -3,8 +3,10 @@
 The ``box="hc"`` construction of ``nmch_tpu/rng/normal.py`` on int64
 tensors that hold u32 words, with the same float32 constants and the
 same order of float32 operations, so that the normals are bitwise those
-of the JAX package; and the turns-based ``boxmuller`` (with its
-``sincos_2pi`` polynomials) that the EM samplers draw from.  Two traps
+of the JAX package; the turns-based ``boxmuller`` (with its
+``sincos_2pi`` polynomials) that the EM samplers draw from; and the QMC
+engine's inverse normal CDF ``ndtri_fast_pm``/``ndtri_fast`` (two
+polynomials in sqrt(-2 ln pm), on ``neg2log``).  Two traps
 of PyTorch's CPU float32 are avoided here:
 
 * ``torch.sqrt`` on float32 is not always correctly rounded; the square
@@ -160,6 +162,46 @@ def normal_pair_hc(w_r: torch.Tensor, w_p: torch.Tensor):
     from w_p's bit 31 (``nmch_tpu.rng.normal.normal_pair_hc``)."""
     f = f32_from_u32((w_p & _MANT) | _ONE)
     return _halfcircle_pair(w_r, f, w_p & _SIGN)
+
+
+# Fast inverse normal CDF of the QMC engine: with s = sqrt(-2 ln pm),
+# pm = min(u, 1 - u), |z| = g(s) by two degree-7 polynomials split at
+# s = 2.6 (nmch_tpu/rng/normal.py's tables; max |z| error 2.3e-6)
+_NDTRI_LO = tuple(float(np.float32(x)) for x in   # s in [sqrt(2 ln 2), 2.6]
+                  (-2.5742833614349365, 3.7063958644866943,
+                   -2.4668259620666504, 1.5879123210906982,
+                   -0.6822224855422974, 0.18576109409332275,
+                   -0.028967037796974182, 0.0019696212839335203))
+_NDTRI_HI = tuple(float(np.float32(x)) for x in   # s in [2.6, 6.5]
+                  (-1.9839493036270142, 2.074390172958374,
+                   -0.4344251751899719, 0.11815280467271805,
+                   -0.02104499191045761, 0.002353857271373272,
+                   -0.00014995710807852447, 4.1502166823192965e-06))
+_NDTRI_SPLIT = float(np.float32(2.6))
+_NDTRI_PM_MIN = 2.0 ** -30      # the HI polynomial is fit for s <= 6.5
+
+
+def ndtri_fast_pm(pm: torch.Tensor) -> torch.Tensor:
+    """|z| = g(pm) for float32 pm = min(u, 1 - u) in (0, 1/2]: the
+    magnitude half of ``ndtri_fast``.  pm below 2^-30 is clamped (the
+    single most extreme Sobol' point, pm = 2^-31, saturates at |z| ~
+    6.45 instead of ~6.55, as in ``nmch_tpu``)."""
+    s = sqrt_f32(neg2log(torch.clamp_min(pm, _NDTRI_PM_MIN)))
+    lo = _NDTRI_LO[-1]
+    for c in _NDTRI_LO[-2::-1]:
+        lo = lo * s + c
+    hi = _NDTRI_HI[-1]
+    for c in _NDTRI_HI[-2::-1]:
+        hi = hi * s + c
+    return torch.where(s < _NDTRI_SPLIT, lo, hi)
+
+
+def ndtri_fast(u: torch.Tensor) -> torch.Tensor:
+    """Inverse normal CDF of float32 u in [2^-26, 1 - 2^-26], max abs
+    error 2.3e-6 on z."""
+    u = u.to(torch.float32)
+    g = ndtri_fast_pm(torch.minimum(u, 1.0 - u))
+    return torch.where(u > 0.5, g, -g)
 
 
 def normal4_from_bits(x0, x1, x2, x3, box: str = "hc"):

@@ -71,7 +71,7 @@ def test_defaults_match_nmch_tpu():
     (["--rng", "threefry4", "--rot", "2"], "slice 3"),
     (["--rot", "4"], "slice 3"),
     (["--antithetic"], "slice 3"),
-    (["--scramble", "owen"], "slice 6"),
+    (["--method", "em", "--engine", "qmc"], "FE-only"),
     (["--greeks"], "slice 7"),
     (["--engine", "pallas"], "invalid choice"),
     (["--rng", "threefry"], "slice 3 (FE variants), item 10"),
@@ -127,7 +127,54 @@ def test_package_and_cli_import_no_jax():
             "nmch_tpu_torch.methods.em, nmch_tpu_torch.rng.threefry4, "
             "nmch_tpu_torch._build, nmch_tpu_torch.explore, "
             "nmch_tpu_torch.ops.sweep, nmch_tpu_torch.ops.sweep_cuda, "
-            "nmch_tpu_torch.analysis.heatmap; "
+            "nmch_tpu_torch.analysis.heatmap, nmch_tpu_torch.rng.sobol, "
+            "nmch_tpu_torch.ops.fe_qmc, nmch_tpu_torch.ops.fe_qmc_cuda; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'nmch_tpu' not in sys.modules, 'nmch_tpu imported'")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+QMC_SMALL = ["--NTPB", "256", "--NB", "8", "--N", "16", "--seed", "11"]
+
+
+@pytest.mark.parametrize("extra", [["--scramble", "shift"],
+                                   ["--scramble", "owen"]])
+def test_qmc_json_matches_nmch_tpu(extra, capsys):
+    """--engine qmc --json: err is null, the price nmch_tpu's at rel
+    1e-5 (its scan form against the port's kernel form).  The default
+    lms-shift is held to nmch_tpu in tests/test_torch_qmc.py (its jitted
+    LMS scramble is the slowest compile here)."""
+    argv = ["--json", "--engine", "qmc", *QMC_SMALL, *extra]
+    got = _json_run(cli_run, [*argv, "--device", "cpu"], capsys)
+    want = _json_run(jax_cli_run, argv, capsys)
+    assert set(got) == set(want)
+    assert got["engine"] == "qmc" and got["err"] is None is want["err"]
+    assert abs(got["price"] - want["price"]) <= 1e-5 * abs(want["price"])
+    assert got["ci_error"] > 0
+
+
+def test_qmc_stats_block_prints_the_rqmc_ci(capsys):
+    assert cli_run(["--engine", "qmc", "--device", "cpu", "--no-warmup",
+                    "--oracle", *QMC_SMALL]) == 0
+    out = capsys.readouterr().out
+    assert "= n/a (RQMC replicate CI: " in out
+    assert "RQMC 95% CI (shift-replicate spread): " in out
+    assert "Semi-analytic Heston price" in out
+
+
+@pytest.mark.parametrize("argv", [["--scramble", "owen"],
+                                  ["--engine", "scan", "--scramble", "shift"],
+                                  ["--method", "em", "--scramble", "owen"]])
+def test_scramble_outside_qmc_is_a_note_and_ignored(argv, capsys):
+    """As in nmch_tpu: a note on stderr, then the run prices as without
+    the flag."""
+    small = SMALL_EM if "em" in argv else SMALL
+    assert cli_run(["--json", "--device", "cpu", "--no-warmup", *argv,
+                    *small]) == 0
+    out, err = capsys.readouterr()
+    rec = json.loads(out.strip().splitlines()[-1])
+    plain = [a for a in argv if a not in ("--scramble", "owen", "shift")]
+    want = _json_run(cli_run, ["--json", "--device", "cpu", "--no-warmup",
+                               *plain, *small], capsys)
+    assert rec["price"] == want["price"] and rec["err"] is not None
+    assert "note: --scramble applies to --method fe --engine qmc" in err

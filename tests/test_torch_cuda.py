@@ -21,6 +21,10 @@ from nmch_tpu_torch.explore import grid_params, grid_points
 from nmch_tpu_torch.ops import fe_stateful as plain_stateful
 from nmch_tpu_torch.ops.fe_stateful_cuda import advance_state_cuda, \
     fe_stateful_moments_cuda, fe_stateful_state_cuda
+from nmch_tpu_torch.ops.fe_qmc import qmc_increments_mxu, \
+    qmc_payoff_sums_plain
+from nmch_tpu_torch.ops.fe_qmc_cuda import qmc_payoff_sums_cuda
+from nmch_tpu_torch.rng import sobol
 
 pytestmark = pytest.mark.cuda
 
@@ -192,3 +196,49 @@ def test_stateful_engines_agree_and_price_within_oracle_bar(dev, rng):
         assert abs(rc.price - rs.price) <= 1e-12 * rs.price
     bar = 3 * rc.ci_error + 2e-3
     assert abs(rc.price - heston_call_undiscounted(mc.params)) <= bar
+
+
+@pytest.mark.parametrize("N,n", [(16, 2048), (13, 2000)])
+def test_qmc_kernel_matches_plain_and_is_deterministic(dev, N, n):
+    """K6 on the card's own increments: per-replicate sums at rel 1e-6 of
+    the plain version's (float64 sums in another order), bitwise repeats,
+    the launch counter rising; n = 2000 leaves a ragged block in each
+    replicate."""
+    pv = HestonParams().as_tensor("cpu")
+    d1, d2 = qmc_increments_mxu(N, n, 1, 1234, 0, pv[0], n_shifts=8,
+                                device=dev)
+    before = qmc_payoff_sums_cuda.launches
+    k = torch.stack(qmc_payoff_sums_cuda(pv, d1, d2, 8))
+    again = torch.stack(qmc_payoff_sums_cuda(pv, d1, d2, 8))
+    assert qmc_payoff_sums_cuda.launches == before + 2
+    assert torch.equal(k, again)
+    p = torch.stack(qmc_payoff_sums_plain(pv, d1, d2, 8))
+    torch.testing.assert_close(k, p, rtol=1e-6, atol=0)
+
+
+def test_qmc_words_on_the_card_equal_the_cpus(dev):
+    """The int64-carried Sobol', LMS and Owen words give the same bits on
+    the card as on the CPU."""
+    v = sobol.direction_numbers(32)
+    for d in (dev, torch.device("cpu")):
+        x = sobol.sobol_dims_u32_hilo(8 * 2048, sobol.as_words(v, d))
+        lms = sobol.lms_scramble_directions(sobol.as_words(v, d), 3, 1234, 0)
+        keys = sobol.owen_seeds(torch.arange(32, device=d)[:, None], 5,
+                                1234, 0)
+        got = [t.cpu() for t in (x, lms, sobol.owen_scramble(x, keys))]
+        if d.type == "cuda":
+            card = got
+    for a, b in zip(card, got):
+        assert torch.equal(a, b)
+
+
+def test_qmc_engine_prices_within_oracle_bar(dev):
+    m = NMCH_FE(SimConfig(NB=64, N=100), HestonParams(), engine="qmc",
+                device=dev)
+    m.init(1234)
+    before = qmc_payoff_sums_cuda.launches
+    res = m.compute()
+    assert qmc_payoff_sums_cuda.launches == before + 1
+    assert res.synthesized_moments
+    bar = 3 * res.ci_error + 2e-3
+    assert abs(res.price - heston_call_undiscounted(m.params)) <= bar

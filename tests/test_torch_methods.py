@@ -83,7 +83,12 @@ def test_compute_before_init_raises():
     ({"rot": 4}, "slice 3"),
     ({"rot": 3}, "rot must be"),
     ({"antithetic": True}, "slice 3"),
-    ({"engine": "qmc"}, "slice 6"),
+    ({"engine": "qmc", "rot": 4}, "no rot/antithetic"),
+    ({"engine": "qmc", "antithetic": True}, "no rot/antithetic"),
+    ({"engine": "qmc", "rng": "threefry4"}, "rng must stay 'philox'"),
+    ({"engine": "qmc", "scramble": "sobol"}, "unknown scramble"),
+    ({"scramble": "owen"}, "engine='qmc' only"),
+    ({"engine": "scan", "scramble": "shift"}, "engine='qmc' only"),
     ({"engine": "pallas"}, "unknown engine"),
     ({"device": "meta"}, "neither cpu nor cuda"),
     ({"rng": "threefry"}, r"slice 3 \(FE variants\), item 10"),
@@ -337,3 +342,66 @@ def test_em_checkpoint_from_nmch_tpu_resumes_the_stream(tmp_path, rng,
     assert m.streams.epoch == epoch == 1 and m.params.theta == 0.12
     got = m.compute().price
     assert abs(got - want) <= 1e-5 * abs(want)
+
+
+# --- NMCH_FE(engine="qmc") -----------------------------------------------
+
+QMC_CFG = SimConfig(NTPB=256, NB=8, N=16)     # 2048 points, 8 replicates
+
+
+def test_qmc_lifecycle_streams_and_synthesized_moments():
+    m = _pricer(engine="qmc")
+    m.cfg = QMC_CFG
+    assert m.scramble == "lms-shift" and m.synthesized_moments
+    m.init(1234)
+    r1, r2 = m.compute(), m.compute()
+    assert r1.price != r2.price and m.streams.epoch == 2
+    assert r1.synthesized_moments and np.isnan(r1.err) and r1.ci_error > 0
+    oracle = t_heston.heston_call_undiscounted(m.params)
+    assert abs(r1.price - oracle) < 4 * r1.ci_error + 2e-3
+    m2 = _pricer(engine="qmc")
+    m2.cfg = QMC_CFG
+    m2.init(1234)
+    assert m2.compute().price == r1.price
+    # the other engines keep accumulated moments
+    assert not _pricer().synthesized_moments
+
+
+@pytest.mark.parametrize("scramble,n_paths,want", [
+    ("auto", 1 << 21, "owen"), ("auto", (1 << 21) - 1024, "lms-shift"),
+    ("shift", 1 << 21, "shift"), ("lms-shift", 1 << 21, "lms-shift"),
+])
+def test_qmc_scramble_auto_resolution_matches_nmch_tpu(scramble, n_paths,
+                                                       want):
+    """Constructed, not run: "auto" is owen from 2^21 points, as in
+    nmch_tpu; non-qmc engines resolve to the lms-shift passthrough."""
+    cfg = SimConfig.from_n_paths(n_paths, NTPB=1024)
+    got = NMCH_FE(cfg, HestonParams(), engine="qmc", device="cpu",
+                  scramble=scramble).scramble
+    jcfg = nmch_tpu.SimConfig(NTPB=cfg.NTPB, NB=cfg.NB, N=cfg.N)
+    assert got == want == nmch_tpu.NMCH_FE(
+        jcfg, nmch_tpu.HestonParams(), engine="qmc",
+        scramble=scramble).scramble
+    assert _pricer(scramble="lms-shift").scramble == "lms-shift"
+
+
+def test_qmc_print_stats_byte_identical_to_nmch_tpu():
+    """The synthesized-moments branch prints the RQMC CI in place of the
+    reference err."""
+    res = SimResult(price=0.1197, price_squared=0.0144, n_paths=1 << 18,
+                    exec_time_ms=250.5, init_time_ms=0.01,
+                    synthesized_moments=True)
+    outs = []
+    for pkg, m in ((nmch_tpu_torch, _pricer(engine="qmc")),
+                   (nmch_tpu, nmch_tpu.NMCH_FE(
+                       nmch_tpu.SimConfig(), nmch_tpu.HestonParams(),
+                       engine="qmc"))):
+        m.cfg = pkg.SimConfig()
+        m.result = pkg.SimResult(**dataclasses.asdict(res))
+        m.init_time_ms = res.init_time_ms
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            m.print_stats()
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1]
+    assert "= n/a (RQMC replicate CI: " in outs[0]
