@@ -28,8 +28,8 @@ import time
 
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "fe.cu", CSRC / "em.cu", CSRC / "sweep.cu",
-           CSRC / "fe_stateful.cu", CSRC / "qmc.cu")
+SOURCES = (CSRC / "fe.cu", CSRC / "fe_device.cu", CSRC / "em.cu",
+           CSRC / "sweep.cu", CSRC / "fe_stateful.cu", CSRC / "qmc.cu")
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_ROOT = _PKG.parent / "build" / "nmch_tpu_torch"
 LIB_NAME = "libnmch_tpu_torch.so"
@@ -103,7 +103,7 @@ def load_library() -> tuple[ctypes.CDLL, BuildInfo]:
     lib.nmch_fe_moments.argtypes = (
         [ctypes.c_float] * 8
         + [ctypes.c_uint32] * 4
-        + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+        + [ctypes.c_int64, ctypes.c_int64] + [ctypes.c_int] * 4
         + [ctypes.c_void_p] * 3)
     lib.nmch_fe_moments.restype = ctypes.c_int
     lib.nmch_em_moments.argtypes = (

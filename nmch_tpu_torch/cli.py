@@ -8,17 +8,21 @@ NTPB=512, NB=512, N=1000, seed=1234), except:
   except for EM with a stateful family, which only the scan engine runs,
   as ``nmch_tpu``'s default resolves to scan there; qmc is FE only) and
   ``--device`` (default cuda; never falls back to the CPU);
-* the RNG and variance-reduction options of later slices (``--rng``
-  threefry and tpu, FE's ``--rot``/``--antithetic``, ``--greeks``) are
-  parser errors that name the ROADMAP.md slice that brings them.
+* ``--rng device``, the card's own stream (``rng/device.py``), in place
+  of ``--rng tpu`` (the TPU's hardware generator): tpu stays a choice, as
+  in ``nmch_tpu``, and exits 2 with a message that names device;
+* ``--greeks`` is a parser error that names the ROADMAP.md slice that
+  brings it.
 
 Run: ``python -m nmch_tpu_torch.cli`` (the FE main path on the card) or
 ``python -m nmch_tpu_torch.cli --method em`` (the exact scheme, with
 ``--conditional`` and ``--poisson-cut``); both methods take
 ``--rng philox|threefry4|xorwow|mrg32k3a`` (FE with xorwow or mrg32k3a
-runs the stateful kernel ``csrc/fe_stateful.cu``); ``--engine qmc
-[--scramble auto|lms-shift|shift|owen]`` prices FE by randomized QMC
-(kernel ``csrc/qmc.cu``) and adds the RQMC CI to the stats block.
+runs the stateful kernel ``csrc/fe_stateful.cu``), FE also ``--rng
+threefry|device`` and rotation sampling (``--rot 2|4|8``,
+``--antithetic``); ``--engine qmc [--scramble auto|lms-shift|shift|owen]``
+prices FE by randomized QMC (kernel ``csrc/qmc.cu``) and adds the RQMC
+CI to the stats block.
 """
 
 from __future__ import annotations
@@ -64,22 +68,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device for the paths (default: cuda)")
     p.add_argument("--rng", choices=["philox", "threefry", "threefry4",
-                                     "tpu", "mrg32k3a", "xorwow"],
+                                     "tpu", "device", "mrg32k3a", "xorwow"],
                    default="philox",
-                   help="philox, threefry4, or the stateful curand "
-                        "families xorwow and mrg32k3a (threefry and tpu "
-                        "are ROADMAP.md slice 3)")
+                   help="mrg32k3a / xorwow = the reference's two stateful "
+                        "curand families (FE prices them on either "
+                        "engine, EM needs --engine scan); device = the "
+                        "card's own stream (FE, --engine cuda), in place "
+                        "of tpu, the TPU's hardware generator")
     p.add_argument("--poisson-cut", type=float, default=None,
                    help="EM only: lambda at and above which the Poisson "
                         "mixture index uses the one-round normal "
                         "approximation (default 128; 4000 = curand's "
                         "switch)")
     p.add_argument("--antithetic", action="store_true",
-                   help="antithetic variates (== --rot 2; ROADMAP.md "
-                        "slice 3)")
+                   help="antithetic-variates variance reduction (FE only; "
+                        "each path becomes a +/-G pair, CI typically "
+                        "shrinks ~2x at the same path count; == --rot 2)")
     p.add_argument("--rot", type=int, choices=[1, 2, 4, 8], default=None,
-                   help="rotation-coupled copies per path group (only 1 "
-                        "is ported; 2, 4, 8 are ROADMAP.md slice 3)")
+                   help="rotation-coupled copies per path group (FE only): "
+                        "2=antithetic, 4=+quarter-turn angle "
+                        "stratification, 8=+radius-antithetic pairs")
     p.add_argument("--conditional", action="store_true",
                    help="EM only: price with the exact conditional "
                         "expectation of the payoff given the variance path")
@@ -138,7 +146,7 @@ def run(argv=None) -> int:
         kwargs = {"antithetic": args.antithetic, "rot": args.rot,
                   "scramble": args.scramble}
     else:
-        if args.rng in ("threefry", "tpu"):
+        if args.rng in ("threefry", "tpu", "device"):
             parser.error(f"--method em does not support --rng {args.rng} "
                          f"(choose philox/threefry4/mrg32k3a/xorwow)")
         if args.antithetic or args.rot:

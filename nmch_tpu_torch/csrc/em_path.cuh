@@ -13,8 +13,9 @@
 // Numerics: every float operation is the plain version's, in its order
 // (built with -fmad=false, no --use_fast_math; IEEE sqrtf and division).
 // The transcendentals are libdevice's logf, expf, log1pf and rsqrtf, the
-// functions torch's CUDA ops call for float32 (nm_* below), so that a
-// path's counter and payoff equal the plain version's on the card.
+// functions torch's CUDA ops call for float32 (nm_* here and in
+// fe_path.cuh), so that a path's counter and payoff equal the plain
+// version's on the card.
 
 #pragma once
 
@@ -22,6 +23,7 @@
 #include <cuda_runtime.h>
 
 #include "counter_rng.cuh"
+#include "fe_path.cuh"
 
 namespace nmch {
 namespace {
@@ -36,10 +38,10 @@ struct EmArgs {
 };
 constexpr int kEmConsts = 13;
 
-// float32 literals of nmch_tpu/ops/sampling.py, ops/em.py and rng/normal.py
-// (shortest round-trip decimal of each float32 value);
-// tests/test_torch_em.py parses this table and holds each literal to the
-// JAX package's value.
+// float32 literals of nmch_tpu/ops/sampling.py and ops/em.py (shortest
+// round-trip decimal of each float32 value); tests/test_torch_em.py parses
+// this table (and fe_path.cuh's sincos_2pi constants) and holds each
+// literal to the JAX package's value.
 constexpr float kPoissonSmall = 10.0f;
 constexpr int kPoissonMaxRounds = 64;
 constexpr int kGammaMaxRounds = 32;
@@ -65,16 +67,6 @@ constexpr float kStirling1260 = 0.0007936508f;
 constexpr float kThird = 0.33333334f;
 constexpr float kMtSqueeze = 0.0331f;
 constexpr float kMtLogFloor = 1e-37f;
-// sincos_2pi: cos((pi/2) r) through r^8, sin((pi/2) r)/r through r^7
-constexpr float kScCos0 = 0.00091926026f;
-constexpr float kScCos1 = -0.02086348f;
-constexpr float kScCos2 = 0.2536695f;
-constexpr float kScCos3 = -1.2337005f;
-constexpr float kScCos4 = 1.0f;
-constexpr float kScSin0 = -0.004681754f;
-constexpr float kScSin1 = 0.079692625f;
-constexpr float kScSin2 = -0.6459641f;
-constexpr float kScSin3 = 1.5707964f;
 // Abramowitz-Stegun 7.1.26 normal CDF
 constexpr float kAsP = 0.2316419f;
 constexpr float kAsB0 = 0.31938154f;
@@ -85,10 +77,7 @@ constexpr float kAsB4 = 1.3302745f;
 constexpr float kInvSqrt2Pi = 0.3989423f;
 constexpr float kSigFloor = 1e-12f;
 
-__device__ __forceinline__ float nm_log(float x) { return logf(x); }
-__device__ __forceinline__ float nm_exp(float x) { return expf(x); }
 __device__ __forceinline__ float nm_log1p(float x) { return log1pf(x); }
-__device__ __forceinline__ float nm_rsqrt(float x) { return rsqrtf(x); }
 
 // The block of 4 words at counter `ctr` of path `path`'s stream.
 template <int R>
@@ -101,53 +90,10 @@ __device__ __forceinline__ void draw4(uint32_t ctr, const EmArgs& a,
   counter_block<R>(w[0], w[1], w[2], w[3], a.k0, a.k1);
 }
 
-__device__ __forceinline__ float uniform_open01(uint32_t w) {
-  return 2.0f - __uint_as_float((w >> 9) | 0x3F800000u);
-}
-
-__device__ __forceinline__ float uniform_halfopen01(uint32_t w) {
-  return __uint_as_float((w >> 9) | 0x3F800000u) - 1.0f;
-}
-
-// (cos(2 pi u), sin(2 pi u)), u in (0, 1] (rng/normal.py::sincos_2pi)
-__device__ __forceinline__ void sincos_2pi(float u, float& cos_out,
-                                           float& sin_out) {
-  const float x = u * 4.0f;
-  const float q = floorf(x + 0.5f);
-  const float r = x - q;
-  const int qi = (int)q;
-  const float r2 = r * r;
-  float c = kScCos0;
-  c = c * r2 + kScCos1;
-  c = c * r2 + kScCos2;
-  c = c * r2 + kScCos3;
-  c = c * r2 + kScCos4;
-  float s = kScSin0;
-  s = s * r2 + kScSin1;
-  s = s * r2 + kScSin2;
-  s = s * r2 + kScSin3;
-  s = s * r;
-  const float cos_base = (qi & 1) ? s : c;
-  const float sin_base = (qi & 1) ? c : s;
-  cos_out = ((qi + 1) & 2) ? -cos_base : cos_base;
-  sin_out = (qi & 2) ? -sin_base : sin_base;
-}
-
 __device__ __forceinline__ float cos_2pi(float u) {
   float c, s;
   sincos_2pi(u, c, s);
   return c;
-}
-
-// rng/normal.py::boxmuller: two uniforms in (0, 1] -> two N(0,1),
-// r = sqrt(-2 ln u1), (r cos, r sin)(2 pi u2)
-__device__ __forceinline__ void boxmuller(float u1, float u2, float& g1,
-                                          float& g2) {
-  const float r = sqrtf(-2.0f * nm_log(u1));
-  float c, s;
-  sincos_2pi(u2, c, s);
-  g1 = r * c;
-  g2 = r * s;
 }
 
 // First output of rng/normal.py::boxmuller(uniform_open01(w0),

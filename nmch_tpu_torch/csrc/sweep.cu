@@ -2,7 +2,8 @@
 // points in one launch each, one thread per path.
 //
 // Replaces nmch_tpu/ops/sweep_pallas.py::_fe_sweep_kernel (K3, behind
-// fe_sweep_pallas, sweep_pallas.py:187) and ::_em_sweep_kernel (K4, behind
+// fe_sweep_pallas, sweep_pallas.py:187; its rng="tpu" branch as the device
+// stream of rng/device.py, box hc) and ::_em_sweep_kernel (K4, behind
 // em_sweep_pallas, :329). The TPU kernels put 128 points in the lanes and
 // paths in the rows, which is what fills the TPU's vector unit. Here a
 // thread is a path, as in fe.cu and em.cu: the grid is (n_paths / 128, P),
@@ -52,9 +53,10 @@ __global__ void __launch_bounds__(kPathThreads)
   const nmch::FeParams p{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7]};
   const nmch::FeConsts c = nmch::fe_consts(p, N);
   const uint32_t path = blockIdx.x * kPathThreads + threadIdx.x;
-  const float S = nmch::fe_path<R>(p, c, k0, k1, epoch0 + blockIdx.y, path,
-                                   N);
-  nmch::block_sum_to_partials(fmaxf(S - p.S_0, 0.0f),
+  float S[1];
+  nmch::fe_group_path<R, 1, nmch::kHc, false>(p, c, k0, k1,
+                                              epoch0 + blockIdx.y, path, N, S);
+  nmch::block_sum_to_partials(fmaxf(S[0] - p.S_0, 0.0f),
                               partials + 2 * (int64_t)gridDim.x * blockIdx.y);
 }
 
@@ -92,11 +94,18 @@ cudaError_t launch_em_sweep(const float* consts, uint32_t k0, uint32_t k1,
   return cudaGetLastError();
 }
 
-bool bad_sizes(int64_t n_points, int64_t N, int64_t n_paths, int rng) {
+bool bad_sizes(int64_t n_points, int64_t N, int64_t n_paths) {
   return n_points < 1 || n_points > kMaxPoints || N < 1 ||
          N > (int64_t(1) << 30) || n_paths < kPathThreads ||
-         n_paths % kPathThreads != 0 || n_paths > (int64_t(1) << 32) ||
-         (rng != nmch::kPhilox && rng != nmch::kThreefry4);
+         n_paths % kPathThreads != 0 || n_paths > (int64_t(1) << 32);
+}
+
+template <int R>
+void launch_fe_sweep(const float* params, uint32_t k0, uint32_t k1,
+                     uint32_t epoch0, int N, dim3 grid, double* partials,
+                     cudaStream_t st) {
+  fe_sweep_paths<R><<<grid, kPathThreads, 0, st>>>(params, k0, k1, epoch0, N,
+                                                   partials);
 }
 
 }  // namespace
@@ -104,28 +113,34 @@ bool bad_sizes(int64_t n_points, int64_t N, int64_t n_paths, int rng) {
 // K3: (E[X], E[X^2]) of n_paths FE paths for each of n_points points into
 // out[2p], out[2p + 1] (float64, device). params: float32[n_points * 8] on
 // the device, row p = (T, S_0, v_0, r, k, rho, theta, sigma) of point p.
-// rng: 0 = philox, 1 = threefry4. partials: float64[2 * n_points * n_paths
-// / 128] scratch on the device. Launches on `stream` and does not
-// synchronise. Returns the cudaError_t of the launches (0 on success);
-// nothing is launched for invalid arguments.
+// rng: 0 = philox, 1 = threefry4, 3 = device (the tagged Philox stream,
+// box hc, in place of the TPU kernel's hardware generator). partials:
+// float64[2 * n_points * n_paths / 128] scratch on the device. Launches on
+// `stream` and does not synchronise. Returns the cudaError_t of the
+// launches (0 on success); nothing is launched for invalid arguments.
 extern "C" int nmch_fe_sweep_moments(const float* params, int64_t n_points,
                                      uint32_t k0, uint32_t k1,
                                      uint32_t epoch0, int64_t N,
                                      int64_t n_paths, int rng,
                                      double* partials, double* out,
                                      void* stream) {
-  if (bad_sizes(n_points, N, n_paths, rng)) {
+  if (bad_sizes(n_points, N, n_paths) ||
+      (rng != nmch::kPhilox && rng != nmch::kThreefry4 &&
+       rng != nmch::kDevice)) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t n_blocks = n_paths / kPathThreads;
   const dim3 grid((unsigned)n_blocks, (unsigned)n_points);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rng == nmch::kPhilox) {
-    fe_sweep_paths<nmch::kPhilox><<<grid, kPathThreads, 0, st>>>(
-        params, k0, k1, epoch0, (int)N, partials);
+    launch_fe_sweep<nmch::kPhilox>(params, k0, k1, epoch0, (int)N, grid,
+                                   partials, st);
+  } else if (rng == nmch::kThreefry4) {
+    launch_fe_sweep<nmch::kThreefry4>(params, k0, k1, epoch0, (int)N, grid,
+                                      partials, st);
   } else {
-    fe_sweep_paths<nmch::kThreefry4><<<grid, kPathThreads, 0, st>>>(
-        params, k0, k1, epoch0, (int)N, partials);
+    launch_fe_sweep<nmch::kDevice>(params, k0, k1, epoch0, (int)N, grid,
+                                   partials, st);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -146,7 +161,8 @@ extern "C" int nmch_em_sweep_moments(const float* consts, int64_t n_points,
                                      int conditional, double* partials,
                                      double* out, float* payoff_out,
                                      uint32_t* ctr_out, void* stream) {
-  if (bad_sizes(n_points, N, n_paths, rng) ||
+  if (bad_sizes(n_points, N, n_paths) ||
+      (rng != nmch::kPhilox && rng != nmch::kThreefry4) ||
       (conditional != 0 && conditional != 1) ||
       ((payoff_out == nullptr) != (ctr_out == nullptr))) {
     return (int)cudaErrorInvalidValue;

@@ -17,8 +17,12 @@ import torch
 
 from .em import em_consts, em_payoffs
 from .fe import LANES, moments_f64, path_index_grid
-from .fe_cuda import RNGS, call_kernel, check_args, check_rng, \
+from .fe_cuda import COUNTER_RNGS, call_kernel, check_args, check_rng, \
     count_launch
+
+# K2's generators; their index is the kernel's `rng` argument
+# (COUNTER_RNGS leads fe_cuda.RNGS)
+RNGS = COUNTER_RNGS
 
 
 def variant_name(rng: str, conditional: bool) -> str:

@@ -1,12 +1,17 @@
 """FE moments through the hand-written CUDA kernel ``csrc/fe.cu``.
 
-The counterpart of ``nmch_tpu/ops/fe_pallas.py::fe_moments_pallas`` for
-rng="philox" or "threefry4", rot=1.  On a CUDA device the wrapper
-launches the kernel (one thread per path, then one block that sums the
-per-block partials) or raises; on the CPU it runs the plain version,
-``ops/fe.py::fe_moments_scan``, which computes the same payoffs
-operation for operation.  Parameters and streams are runtime arguments,
-so a parameter sweep never rebuilds the kernel.
+The counterpart of ``nmch_tpu/ops/fe_pallas.py::fe_moments_pallas`` in
+every variant it takes: rng philox, threefry, threefry4, and the card's
+own device stream in place of the TPU's hardware generator; rot 1, 2, 4,
+8 (``antithetic`` is rot 2); box hc or turns, and with the device stream
+also the packed hc16/hc16f and ``fast_sqrt``.  On a CUDA device the
+wrapper launches the kernel (one thread per path group, then one block
+that sums the per-block partials) or raises; on the CPU it runs the
+plain version, ``ops/fe.py::fe_moments_kernel_plain``, which computes the
+same payoffs operation for operation.  Parameters and streams are runtime
+arguments, so a parameter sweep never rebuilds the kernel.
+``fe_moments_pallas``'s TPU tuning knobs (``tile_rows``, ``unroll``,
+``interpret``) are not taken.
 """
 
 from __future__ import annotations
@@ -14,10 +19,12 @@ from __future__ import annotations
 import torch
 
 from .._build import load_library
-from .fe import LANES, fe_moments_scan, path_index_grid
+from .fe import BOXES, DEVICE_NOT_TPU, LANES, fe_moments_kernel_plain
 
 _MAX_N = 1 << 30
-RNGS = ("philox", "threefry4")   # the kernels' `rng` argument is the index
+# the kernels' `rng` argument is the index (csrc/counter_rng.cuh)
+RNGS = ("philox", "threefry4", "threefry", "device")
+COUNTER_RNGS = ("philox", "threefry4")     # K2, K4 (and K3 with "device")
 
 
 def check_u32(name: str, x) -> int:
@@ -27,15 +34,61 @@ def check_u32(name: str, x) -> int:
     return x
 
 
-def check_rng(rng: str, kernel: str) -> None:
-    """Refuse a generator the kernels do not take."""
+def check_rng(rng: str, kernel: str, allowed=COUNTER_RNGS) -> None:
+    """Refuse a generator the kernel does not take."""
     if rng == "tpu":
-        raise ValueError(f"rng='tpu' is not ported yet: the device PRNG of "
-                         f"the TPU kernels has no counterpart in {kernel} "
-                         f"(ROADMAP.md Queue 1, slice 3, item 12)")
+        raise ValueError(DEVICE_NOT_TPU)
+    if rng not in allowed:
+        names = [repr(r) for r in allowed]
+        raise ValueError(f"rng={rng!r}: the {kernel} kernel takes "
+                         f"{', '.join(names[:-1])} or {names[-1]}")
+
+
+def resolve_rot(rot, antithetic: bool) -> int:
+    """rot from ``rot`` and ``antithetic`` as nmch_tpu resolves them: None
+    is 2 if antithetic else 1; antithetic with rot=1 is refused."""
+    if rot is None:
+        rot = 2 if antithetic else 1
+    elif antithetic and rot == 1:
+        raise ValueError("antithetic=True contradicts rot=1 (antithetic IS "
+                         "rot=2; pass one of them)")
+    if rot not in (1, 2, 4, 8):
+        raise ValueError(f"rot must be 1, 2, 4 or 8, got {rot}")
+    return rot
+
+
+def check_variant(rng: str, rot, antithetic: bool, box: str,
+                  fast_sqrt: bool) -> int:
+    """``fe_moments_pallas``'s checks of a K1 variant, with "device" where
+    nmch_tpu says "tpu"; returns the resolved rot."""
+    rot = resolve_rot(rot, antithetic)
+    if rng == "tpu":
+        raise ValueError(DEVICE_NOT_TPU)
     if rng not in RNGS:
-        raise ValueError(f"rng={rng!r}: the {kernel} kernel takes 'philox' "
-                         f"or 'threefry4'")
+        raise ValueError(f"unknown rng {rng!r} (expected 'philox', "
+                         f"'threefry', 'threefry4' or 'device')")
+    if box not in BOXES:
+        raise ValueError(f"unknown box {box!r} (expected one of {BOXES})")
+    if box in ("hc16", "hc16f") and rng != "device":
+        raise ValueError(f"box={box!r} (packed 16-bit phases) only applies "
+                         f"to rng='device': the counter-based engines keep "
+                         f"the 4-word consumption contract (bitwise "
+                         f"golden==kernel parity)")
+    if fast_sqrt and rng != "device":
+        raise ValueError("fast_sqrt=True (v * rsqrt(v)) only applies to "
+                         "rng='device': rsqrt is not correctly rounded, so "
+                         "the reproducible engines keep IEEE sqrt")
+    return rot
+
+
+def variant_name(rng: str, rot: int = 1, box: str = "hc",
+                 fast_sqrt: bool = False) -> str:
+    """The name under which a K1 variant is counted and reported, e.g.
+    fe_philox (rot 1, box hc), fe_philox_rot4,
+    fe_device_hc16f_fastsqrt_rot4."""
+    return (f"fe_{rng}" + ("" if box == "hc" else f"_{box}")
+            + ("_fastsqrt" if fast_sqrt else "")
+            + (f"_rot{rot}" if rot > 1 else ""))
 
 
 def check_sizes(N, n_paths, device):
@@ -85,31 +138,39 @@ def call_kernel(entry: str, name: str, device, *args) -> None:
 
 
 def fe_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
-                    n_paths: int, device, rng: str = "philox"):
-    """(E[X], E[X^2]) over n_paths FE paths, as float64 0-dim tensors on
-    ``device``.
+                    n_paths: int, device, rng: str = "philox",
+                    rot: int | None = None, antithetic: bool = False,
+                    box: str = "hc", fast_sqrt: bool = False):
+    """(E[Y], E[Y^2]) over n_paths FE path groups, as float64 0-dim
+    tensors on ``device``; Y is the mean payoff of a group's rot coupled
+    copies (Y = X at rot 1).
 
     params: float32 tensor (8,) on the CPU, (T, S_0, v_0, r, k, rho,
     theta, sigma); the kernel receives the values by argument.
     seed_words: the (k0, k1) u32 key pair; epoch and base_path: u32
-    stream coordinates (path p draws from counter (j, epoch,
-    base_path + p, 0)); rng: "philox" or "threefry4".  Each launch adds
-    one to ``fe_moments_cuda.launches`` and to
-    ``fe_moments_cuda.variant_launches[f"fe_{rng}"]``."""
+    stream coordinates (group p draws from path base_path + p's stream);
+    rng, rot, antithetic, box, fast_sqrt: as ``fe_moments_pallas``, with
+    rng "device" for its "tpu" (``check_variant``).  Each launch adds one
+    to ``fe_moments_cuda.launches`` and to
+    ``fe_moments_cuda.variant_launches[variant_name(rng, rot, box,
+    fast_sqrt)]``."""
     device, N, n_paths, k0, k1, epoch, base_path = check_args(
         params, seed_words, epoch, base_path, N, n_paths, device)
-    check_rng(rng, "FE")
+    rot = check_variant(rng, rot, antithetic, box, fast_sqrt)
     if device.type == "cpu":
-        pidx = path_index_grid(n_paths, base_path, device)
-        return fe_moments_scan(params, N, pidx, epoch, k0, k1, rng=rng)
+        return fe_moments_kernel_plain(
+            params, (k0, k1), epoch, base_path, N=N, n_paths=n_paths,
+            rng=rng, rot=rot, box=box, fast_sqrt=fast_sqrt)
 
+    name = variant_name(rng, rot, box, fast_sqrt)
     partials = torch.empty(2 * (n_paths // LANES), dtype=torch.float64,
                            device=device)
     out = torch.empty(2, dtype=torch.float64, device=device)
-    call_kernel("nmch_fe_moments", f"fe_{rng}", device, *params.tolist(),
-                k0, k1, epoch, base_path, N, n_paths, RNGS.index(rng),
-                partials.data_ptr(), out.data_ptr())
-    count_launch(fe_moments_cuda, f"fe_{rng}")
+    call_kernel("nmch_fe_moments", name, device, *params.tolist(),
+                k0, k1, epoch, base_path, N, n_paths, RNGS.index(rng), rot,
+                BOXES.index(box), int(bool(fast_sqrt)), partials.data_ptr(),
+                out.data_ptr())
+    count_launch(fe_moments_cuda, name)
     return out[0], out[1]
 
 

@@ -50,7 +50,8 @@ def fe_sweep_plain(params_matrix, seed_words, epoch0: int, *, N: int,
     """(E[X], E[X^2]) per point as two float64 (P,) tensors on ``device``.
 
     params_matrix: float32 (P, 8) rows of (T, S_0, v_0, r, k, rho, theta,
-    sigma); seed_words: the (k0, k1) u32 key; rng: philox or threefry4."""
+    sigma); seed_words: the (k0, k1) u32 key; rng: philox, threefry4 or
+    device (``rng/device.py``, 4 words a block)."""
     k0, k1 = (int(w) for w in seed_words)
     P = params_matrix.shape[0]
     params = torch.stack(_columns(params_matrix, device))

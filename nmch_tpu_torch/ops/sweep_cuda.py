@@ -1,8 +1,9 @@
 """Sweep moments through the hand-written CUDA kernels ``csrc/sweep.cu``.
 
 The counterparts of ``nmch_tpu/ops/sweep_pallas.py::fe_sweep_pallas``
-(K3) and ``em_sweep_pallas`` (K4): the moments of P parameter points in
-one launch, point p at epoch ``(epoch0 + p) mod 2^32`` with path ids
+(K3, with its rng="tpu" as the card's "device" stream) and
+``em_sweep_pallas`` (K4): the moments of P parameter points in one
+launch, point p at epoch ``(epoch0 + p) mod 2^32`` with path ids
 0..n_paths-1, so point p is bitwise the single-point kernel's moments at
 that epoch and base_path 0.  On a CUDA device the wrappers launch the
 kernel (grid (n_paths/128, P), then one block per point that sums its
@@ -16,15 +17,16 @@ import torch
 from .em import em_consts_table
 from .em_cuda import variant_name
 from .fe import LANES
-from .fe_cuda import RNGS, call_kernel, check_rng, check_sizes, \
-    check_u32, count_launch
+from .fe_cuda import COUNTER_RNGS, RNGS, call_kernel, check_rng, \
+    check_sizes, check_u32, count_launch
 from .sweep import em_sweep_plain, fe_sweep_plain
 
 MAX_POINTS = 65535      # the kernels' gridDim.y
+FE_SWEEP_RNGS = (*COUNTER_RNGS, "device")
 
 
 def _check(params_matrix, seed_words, epoch0, N, n_paths, device, rng,
-           kernel: str):
+           kernel: str, rngs=COUNTER_RNGS):
     device, N, n_paths = check_sizes(N, n_paths, device)
     pm = params_matrix
     if not isinstance(pm, torch.Tensor) or pm.dtype != torch.float32 \
@@ -34,7 +36,7 @@ def _check(params_matrix, seed_words, epoch0, N, n_paths, device, rng,
     if not 1 <= pm.shape[0] <= MAX_POINTS:
         raise ValueError(f"P={pm.shape[0]} points: the sweep takes 1 to "
                          f"{MAX_POINTS}")
-    check_rng(rng, kernel)
+    check_rng(rng, kernel, rngs)
     k0, k1 = (check_u32("seed word", w) for w in seed_words)
     return device, N, n_paths, k0, k1, check_u32("epoch0", epoch0)
 
@@ -54,12 +56,14 @@ def fe_sweep_cuda(params_matrix, seed_words, epoch0, *, N: int,
 
     params_matrix: float32 (P, 8) on the CPU, rows (T, S_0, v_0, r, k,
     rho, theta, sigma); seed_words: the (k0, k1) u32 key; epoch0: u32;
-    rng: "philox" or "threefry4".  Each launch adds one to
+    rng: "philox", "threefry4" or "device" (the card's stream in place of
+    the TPU kernel's hardware generator, box hc, rot 1, IEEE sqrt, as
+    ``sweep_pallas.py:96-120``).  Each launch adds one to
     ``fe_sweep_cuda.launches`` and to
     ``fe_sweep_cuda.variant_launches[f"fe_sweep_{rng}"]``."""
     device, N, n_paths, k0, k1, epoch0 = _check(
         params_matrix, seed_words, epoch0, N, n_paths, device, rng,
-        "FE sweep")
+        "FE sweep", FE_SWEEP_RNGS)
     if device.type == "cpu":
         return fe_sweep_plain(params_matrix, (k0, k1), epoch0, N=N,
                               n_paths=n_paths, rng=rng, device=device)

@@ -1,13 +1,17 @@
 """Normal variates from raw uint32 bits.
 
-The ``box="hc"`` construction of ``nmch_tpu/rng/normal.py`` on int64
-tensors that hold u32 words, with the same float32 constants and the
-same order of float32 operations, so that the normals are bitwise those
-of the JAX package; the turns-based ``boxmuller`` (with its
-``sincos_2pi`` polynomials) that the EM samplers draw from; and the QMC
-engine's inverse normal CDF ``ndtri_fast_pm``/``ndtri_fast`` (two
-polynomials in sqrt(-2 ln pm), on ``neg2log``).  Two traps
-of PyTorch's CPU float32 are avoided here:
+The constructions of ``nmch_tpu/rng/normal.py`` on int64 tensors that
+hold u32 words, with the same float32 constants and the same order of
+float32 operations, so that the normals are bitwise those of the JAX
+package: the half-circle Box–Muller of ``box="hc"`` (``normal_pair_hc``),
+its op-trimmed ``fast`` polynomials and the packed-phase 3-word blocks of
+the device generator (``normal4_from_bits3``, boxes hc16/hc16f, with the
+radius-antithetic scale of each pair when ``with_scale``); the
+turns-based ``boxmuller`` (with its ``sincos_2pi`` polynomials) of
+``box="turns"`` and of the EM samplers; and the QMC engine's inverse
+normal CDF ``ndtri_fast_pm``/``ndtri_fast`` (two polynomials in
+sqrt(-2 ln pm), on ``neg2log``).  Two traps of PyTorch's CPU float32 are
+avoided here:
 
 * ``torch.sqrt`` on float32 is not always correctly rounded; the square
   root is taken in float64 and rounded once to float32, which is the
@@ -17,9 +21,7 @@ of PyTorch's CPU float32 are avoided here:
 
 ``boxmuller`` takes ``torch.log`` of its radius uniform, which is not
 bitwise XLA's ``log`` on the CPU (about 95% of float32 inputs agree);
-on a CUDA tensor it is libdevice's ``logf``, as in the EM kernel.
-``normal4_from_bits`` still refuses the ``"turns"`` box: FE's turns
-variant comes with the FE variants (ROADMAP.md Queue 1, slice 3).
+on a CUDA tensor it is libdevice's ``logf``, as in the kernels.
 """
 
 from __future__ import annotations
@@ -41,6 +43,18 @@ _NEG2LOG = tuple(float(np.float32(-2.0 * c)) for c in
                   0.17745159, -0.1076805, 0.04408875, -0.00853896))
 _NEG2LN2 = float(np.float32(-2.0 * np.log(2.0)))       # -1.3862944
 _C254LN2 = float(np.float32(-127.0 * _NEG2LN2))        # cancels at u=1
+# the shorter polynomials of the device generator's box="hc16f" (fast=True):
+# sin(z) = z * P(z^2), |z| <= pi/2, max abs err 6.8e-5
+_SIN_F = tuple(float(np.float32(c)) for c in
+               (0.9996968, -0.16567308, 7.514376e-3))
+# cos(z) = Q(z^2), max abs err 6.7e-6
+_COS_F = tuple(float(np.float32(c)) for c in
+               (0.9999933, -0.49991244, 4.1487746e-2, -1.2712093e-3))
+# -2*ln(1+t) = t * M(t), t in [0,1), rel err 9.4e-5; exactly -2 ln 2 at t=1
+_NEG2LOG_F = tuple(float(np.float32(-2.0 * c)) for c in
+                   (0.99994326, -0.49697754, 0.30629954, -0.15742502,
+                    0.0413069))
+_SCALE_FLOOR = 1e-35        # the with_scale divisor's floor (q can be 0)
 _PI = float(np.float32(np.pi))
 _PI_1P5 = float(np.float32(1.5 * np.pi))
 _MAGIC = 12582912.0                                    # 1.5 * 2^23
@@ -121,16 +135,18 @@ def boxmuller(u1: torch.Tensor, u2: torch.Tensor):
     return r * c, r * s
 
 
-def neg2log(u: torch.Tensor) -> torch.Tensor:
+def neg2log(u: torch.Tensor, fast: bool = False) -> torch.Tensor:
     """-2*ln(u) for float32 u in (0, 1], from u's own bit pattern:
     u = m * 2^(e-127), the biased exponent converted to float by the
-    1.5*2^23 magic number and ln m by a degree-8 polynomial."""
+    1.5*2^23 magic number and ln m by a degree-8 polynomial (degree 4
+    with ``fast``)."""
     b = u32_from_f32(u)
     ebf = f32_from_u32((b >> 23) | 0x4B400000) - _MAGIC
     m = f32_from_u32((b & _MANT) | _ONE)
     t = m - 1.0
-    p = _NEG2LOG[-1]
-    for c in _NEG2LOG[-2::-1]:
+    coefs = _NEG2LOG_F if fast else _NEG2LOG
+    p = coefs[-1]
+    for c in coefs[-2::-1]:
         p = p * t + c
     q = ebf * _NEG2LN2 + _C254LN2 + t * p
     # polynomial + rounding residue can dip ~1 ulp below zero at u ~ 1
@@ -138,21 +154,35 @@ def neg2log(u: torch.Tensor) -> torch.Tensor:
 
 
 def _halfcircle_pair(w_r: torch.Tensor, f: torch.Tensor,
-                     sign_bits: torch.Tensor):
+                     sign_bits: torch.Tensor, fast: bool = False,
+                     with_scale: bool = False):
     """Shared half-circle Box–Muller core: radius word w_r, phase carrier
-    f in [1, 2), and the pair's random sign in bit 31 of sign_bits."""
+    f in [1, 2), and the pair's random sign in bit 31 of sign_bits.
+    ``fast`` takes the shorter polynomials (_SIN_F, _COS_F, _NEG2LOG_F).
+
+    with_scale=True also returns the pair's radius-antithetic scale
+    s = sqrt(-2 ln(1-u) / -2 ln u) from its radius uniform u
+    (``ops/fe.py::radius_antithetic_scale``'s meaning, without its
+    exp and log); the divisor is floored at 1e-35 where -2 ln u rounds
+    to 0, so the scale stays finite on a pair of zeros."""
     u = uniform_open01(w_r)
-    q = neg2log(u)
+    q = neg2log(u, fast=fast)
     R = f32_from_u32(u32_from_f32(sqrt_f32(q)) ^ sign_bits)
     z = f * _PI - _PI_1P5
     z2 = z * z
-    s = _SIN_HC[-1]
-    for c in _SIN_HC[-2::-1]:
+    sin_c = _SIN_F if fast else _SIN_HC
+    cos_c = _COS_F if fast else _COS_HC
+    s = sin_c[-1]
+    for c in sin_c[-2::-1]:
         s = s * z2 + c
     s = s * z
-    c_ = _COS_HC[-1]
-    for c in _COS_HC[-2::-1]:
+    c_ = cos_c[-1]
+    for c in cos_c[-2::-1]:
         c_ = c_ * z2 + c
+    if with_scale:
+        l2 = neg2log(1.0 - u, fast=fast)
+        scale = sqrt_f32(l2 / torch.clamp_min(q, _SCALE_FLOOR))
+        return R * c_, R * s, scale
     return R * c_, R * s
 
 
@@ -162,6 +192,24 @@ def normal_pair_hc(w_r: torch.Tensor, w_p: torch.Tensor):
     from w_p's bit 31 (``nmch_tpu.rng.normal.normal_pair_hc``)."""
     f = f32_from_u32((w_p & _MANT) | _ONE)
     return _halfcircle_pair(w_r, f, w_p & _SIGN)
+
+
+def normal4_from_bits3(w_r0, w_r1, w_ph, fast: bool = False,
+                       with_scale: bool = False):
+    """Three u32 words -> four N(0,1) float32 values (boxes hc16/hc16f):
+    two half-circle pairs whose 15-bit phases and signs share one word,
+    pair 0 in w_ph bits 0-14 (phase) and 15 (sign), pair 1 in bits 16-30
+    and 31.  with_scale=True also returns each pair's radius-antithetic
+    scale: (g0, g1, g2, g3, scale0, scale1)."""
+    f0 = f32_from_u32(((w_ph & 0x7FFF) << 8) | _ONE)
+    s0 = (w_ph << 16) & _SIGN
+    f1 = f32_from_u32(((w_ph >> 8) & 0x007FFF00) | _ONE)
+    s1 = w_ph & _SIGN
+    p0 = _halfcircle_pair(w_r0, f0, s0, fast=fast, with_scale=with_scale)
+    p1 = _halfcircle_pair(w_r1, f1, s1, fast=fast, with_scale=with_scale)
+    if with_scale:
+        return p0[0], p0[1], p1[0], p1[1], p0[2], p1[2]
+    return (*p0, *p1)
 
 
 # Fast inverse normal CDF of the QMC engine: with s = sqrt(-2 ln pm),
@@ -206,11 +254,15 @@ def ndtri_fast(u: torch.Tensor) -> torch.Tensor:
 
 def normal4_from_bits(x0, x1, x2, x3, box: str = "hc"):
     """Four u32 words -> four N(0,1) float32 values via two Box–Muller
-    pairs: one counter block feeds two time steps."""
-    if box != "hc":
-        raise ValueError(f"box={box!r} is not ported; only 'hc' is (the "
-                         f"'turns' construction comes with the FE "
-                         f"variants, ROADMAP.md Queue 1, slice 3)")
-    g0, g1 = normal_pair_hc(x0, x1)
-    g2, g3 = normal_pair_hc(x2, x3)
+    pairs: one counter block feeds two time steps.  box="hc": the
+    half-circle construction; box="turns": ``boxmuller`` on two (0, 1]
+    uniforms per pair."""
+    if box == "hc":
+        g0, g1 = normal_pair_hc(x0, x1)
+        g2, g3 = normal_pair_hc(x2, x3)
+    elif box == "turns":
+        g0, g1 = boxmuller(uniform_open01(x0), uniform_open01(x1))
+        g2, g3 = boxmuller(uniform_open01(x2), uniform_open01(x3))
+    else:
+        raise ValueError(f"unknown box {box!r} (expected 'hc' or 'turns')")
     return g0, g1, g2, g3

@@ -43,6 +43,23 @@ def test_threefry4_json_matches_nmch_tpu_scan(capsys):
     assert got["price"] != philox["price"]
 
 
+@pytest.mark.parametrize("extra", [["--rot", "4"], ["--antithetic"],
+                                   ["--rng", "threefry"]])
+def test_fe_variants_json_match_nmch_tpu_scan(extra, capsys):
+    """--rot 4, --antithetic and --rng threefry: the port's JSON (scan
+    engine, and the cuda engine's plain version on the CPU, bitwise the
+    scan) against nmch_tpu's --engine scan at rel 1e-5."""
+    argv = ["--json", *SMALL, *extra]
+    want = _json_run(jax_cli_run, [*argv, "--engine", "scan"], capsys)
+    for engine in ("scan", "cuda"):
+        got = _json_run(cli_run, [*argv, "--engine", engine, "--device",
+                                  "cpu"], capsys)
+        assert set(got) == set(want) and got["n_paths"] == 1024
+        assert abs(got["price"] - want["price"]) <= 1e-5 * abs(want["price"])
+        assert abs(got["ci_error"] - want["ci_error"]) <= \
+            1e-4 * want["ci_error"]
+
+
 def test_stats_block_and_oracle_json(capsys):
     assert cli_run(["--device", "cpu", "--no-warmup", *SMALL]) == 0
     assert "METHOD: FORWARD-EULER" in capsys.readouterr().out
@@ -68,14 +85,15 @@ def test_defaults_match_nmch_tpu():
      "requires engine='scan'"),
     (["--method", "em", "--rng", "tpu"], "does not support"),
     (["--method", "em", "--greeks"], "slice 7"),
-    (["--rng", "threefry4", "--rot", "2"], "slice 3"),
-    (["--rot", "4"], "slice 3"),
-    (["--antithetic"], "slice 3"),
+    (["--rng", "device", "--engine", "scan"], "requires engine='cuda'"),
+    (["--rng", "xorwow", "--rot", "4"], "no rot/antithetic"),
+    (["--antithetic", "--rot", "1"], "contradicts rot=1"),
     (["--method", "em", "--engine", "qmc"], "FE-only"),
     (["--greeks"], "slice 7"),
     (["--engine", "pallas"], "invalid choice"),
-    (["--rng", "threefry"], "slice 3 (FE variants), item 10"),
-    (["--rng", "tpu"], "slice 3 (FE variants), item 12"),
+    (["--method", "em", "--rng", "device"], "does not support"),
+    (["--rng", "tpu"], "use rng='device'"),
+    (["--engine", "qmc", "--rot", "4"], "no rot/antithetic"),
 ])
 def test_unported_options_are_parser_errors(argv, match, capsys):
     with pytest.raises(SystemExit) as e:
@@ -128,7 +146,8 @@ def test_package_and_cli_import_no_jax():
             "nmch_tpu_torch._build, nmch_tpu_torch.explore, "
             "nmch_tpu_torch.ops.sweep, nmch_tpu_torch.ops.sweep_cuda, "
             "nmch_tpu_torch.analysis.heatmap, nmch_tpu_torch.rng.sobol, "
-            "nmch_tpu_torch.ops.fe_qmc, nmch_tpu_torch.ops.fe_qmc_cuda; "
+            "nmch_tpu_torch.ops.fe_qmc, nmch_tpu_torch.ops.fe_qmc_cuda, "
+            "nmch_tpu_torch.rng.threefry, nmch_tpu_torch.rng.device; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'nmch_tpu' not in sys.modules, 'nmch_tpu imported'")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -6,14 +6,17 @@ nmch_tpu, so they run on a GPU machine without JAX:
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 """
 
+import json
+
 import pytest
 import torch
 
 from nmch_tpu_torch import HestonParams, NMCH_EM, NMCH_FE, SimConfig
 from nmch_tpu_torch.ops.em import em_payoffs, moments_f64
 from nmch_tpu_torch.ops.em_cuda import em_moments_cuda
-from nmch_tpu_torch.ops.fe import fe_moments_scan, path_index_grid
-from nmch_tpu_torch.ops.fe_cuda import fe_moments_cuda
+from nmch_tpu_torch.ops.fe import fe_moments_kernel_plain, \
+    fe_moments_scan, path_index_grid
+from nmch_tpu_torch.ops.fe_cuda import fe_moments_cuda, variant_name
 from nmch_tpu_torch.ops.sweep import em_sweep_plain, fe_sweep_plain
 from nmch_tpu_torch.ops.sweep_cuda import em_sweep_cuda, fe_sweep_cuda
 from nmch_tpu_torch.oracle import heston_call_undiscounted
@@ -25,6 +28,7 @@ from nmch_tpu_torch.ops.fe_qmc import qmc_increments_mxu, \
     qmc_payoff_sums_plain
 from nmch_tpu_torch.ops.fe_qmc_cuda import qmc_payoff_sums_cuda
 from nmch_tpu_torch.rng import sobol
+from nmch_tpu_torch import cli
 
 pytestmark = pytest.mark.cuda
 
@@ -51,6 +55,44 @@ def test_kernel_matches_plain_and_is_deterministic(dev, N, epoch, base):
                                     path_index_grid(1 << 14, base, dev),
                                     epoch, *key))
     torch.testing.assert_close(k1, p, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("rng,rot,box,fast_sqrt,N", [
+    ("philox", 4, "hc", False, 11), ("threefry", 4, "turns", False, 12),
+    ("threefry4", 4, "hc", False, 11), ("device", 4, "hc16", False, 12),
+    ("device", 8, "hc16f", True, 11)])
+def test_fe_variant_matches_plain_and_is_deterministic(dev, rng, rot, box,
+                                                       fast_sqrt, N):
+    """K1's variants against fe_moments_kernel_plain on the card: moments
+    at rel 1e-6 (float64 sums in another order), bitwise repeats, the
+    variant's launch counter rising."""
+    pv = HestonParams().as_tensor("cpu")
+    kw = dict(N=N, n_paths=1 << 14, rng=rng, rot=rot, box=box,
+              fast_sqrt=fast_sqrt)
+    name = variant_name(rng, rot, box, fast_sqrt)
+    before = fe_moments_cuda.variant_launches.get(name, 0)
+    k1 = torch.stack(fe_moments_cuda(pv, (1234, 0), 3, 1 << 14, device=dev,
+                                     **kw))
+    k2 = torch.stack(fe_moments_cuda(pv, (1234, 0), 3, 1 << 14, device=dev,
+                                     **kw))
+    assert fe_moments_cuda.variant_launches[name] == before + 2
+    assert torch.equal(k1, k2)
+    p = torch.stack(fe_moments_kernel_plain(pv.to(dev), (1234, 0), 3,
+                                            1 << 14, **kw))
+    torch.testing.assert_close(k1, p, rtol=1e-6, atol=0)
+
+
+def test_rot4_cli_prices_within_oracle_bar(dev, capsys):
+    """python -m nmch_tpu_torch.cli --rot 4 --json --oracle (at 2^15
+    groups x N=200): K1 philox rot 4 launched, price within 3 ci +
+    2e-3."""
+    before = fe_moments_cuda.variant_launches.get("fe_philox_rot4", 0)
+    assert cli.run(["--rot", "4", "--json", "--oracle", "--NB", "64",
+                    "--N", "200"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert fe_moments_cuda.variant_launches["fe_philox_rot4"] > before
+    assert abs(rec["price"] - rec["heston_oracle"]) <= \
+        3 * rec["ci_error"] + 2e-3
 
 
 def test_main_path_prices_within_oracle_bar(dev):
@@ -105,7 +147,8 @@ def _sweep_points():
 
 
 @pytest.mark.parametrize("rng,epoch0", [("philox", 0),
-                                        ("threefry4", 2**32 - 4)])
+                                        ("threefry4", 2**32 - 4),
+                                        ("device", 2**32 - 4)])
 def test_fe_sweep_matches_plain_and_single_point_kernel(dev, rng, epoch0):
     """K3 vs the plain sweep at rel 1e-6; point p bitwise K1 at epoch
     epoch0 + p."""

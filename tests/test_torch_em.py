@@ -53,6 +53,7 @@ PARAMS = [
 ]
 EM_SRC = (pathlib.Path(__file__).resolve().parents[1]
           / "nmch_tpu_torch" / "csrc" / "em_path.cuh")
+FE_SRC = EM_SRC.with_name("fe_path.cuh")
 
 
 def _pv(p: JHestonParams) -> torch.Tensor:
@@ -255,11 +256,15 @@ def test_terminal_and_norm_cdf_match_nmch_tpu():
 # --- the kernel's float32 literal table ---------------------------------
 
 def _kernel_constants() -> dict:
-    src = EM_SRC.read_text()
+    """em_path.cuh's constants and the sincos_2pi constants it takes from
+    fe_path.cuh (whose other literals test_torch_normal.py holds)."""
     out = {}
-    for name, lit in re.findall(r"constexpr (?:float|int) (k\w+) = ([^;]+);",
-                                src):
-        out[name] = np.float32(float(lit.rstrip("f")))
+    for src, keep in ((EM_SRC, ("k",)), (FE_SRC, ("kScCos", "kScSin"))):
+        for name, lit in re.findall(
+                r"constexpr (?:float|int) (k\w+) = ([^;]+);",
+                src.read_text()):
+            if name.startswith(keep):
+                out[name] = np.float32(float(lit.rstrip("f")))
     return out
 
 

@@ -119,9 +119,9 @@ def test_path_index_grid_matches_and_wraps():
 
 
 def test_make_draw4_refuses_other_rngs():
-    with pytest.raises(ValueError, match="slice 3"):
-        tfe.make_draw4("threefry", None, None, 0, 0, 0)
-    with pytest.raises(ValueError, match="slice 3: FE variants, item 12"):
+    with pytest.raises(ValueError, match="unknown counter rng 'xorwow'"):
+        tfe.make_draw4("xorwow", None, None, 0, 0, 0)
+    with pytest.raises(ValueError, match="use rng='device'"):
         tfe.make_draw4("tpu", None, None, 0, 0, 0)
     with pytest.raises(ValueError, match="unknown counter rng"):
         tfe.make_draw4("bogus", None, None, 0, 0, 0)
@@ -134,6 +134,27 @@ def test_wrapper_on_cpu_is_the_plain_version_bitwise(N, base):
 
 def test_threefry4_wrapper_on_cpu_is_the_plain_version_bitwise():
     _wrapper_is_plain(9, 384, "threefry4")
+
+
+@pytest.mark.parametrize("kw", [
+    {"rng": "threefry", "antithetic": True},
+    {"rng": "device", "rot": 8, "box": "hc16f", "fast_sqrt": True},
+    {"rng": "philox", "rot": 4, "box": "turns"}])
+def test_variant_wrapper_on_cpu_is_the_kernel_plain_bitwise(kw):
+    """fe_moments_cuda on CPU tensors is fe_moments_kernel_plain, with
+    antithetic resolved to rot 2, and launches nothing."""
+    pv = _pv(PARAMS[1])
+    before = (fe_moments_cuda.launches,
+              dict(fe_moments_cuda.variant_launches))
+    got = fe_moments_cuda(pv, (5, 6), 1, 128, N=9, n_paths=256,
+                          device="cpu", **kw)
+    plain_kw = dict(kw, rot=kw.get("rot", 2))
+    plain_kw.pop("antithetic", None)
+    want = tfe.fe_moments_kernel_plain(pv, (5, 6), 1, 128, N=9,
+                                       n_paths=256, **plain_kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert before == (fe_moments_cuda.launches,
+                      fe_moments_cuda.variant_launches)
 
 
 def _wrapper_is_plain(N, base, rng):
@@ -160,8 +181,15 @@ def _wrapper_is_plain(N, base, rng):
     ({"base_path": -1}, "uint32"),
     ({"seed_words": (2**32, 0)}, "uint32"),
     ({"device": "meta"}, "neither cpu nor cuda"),
-    ({"rng": "tpu"}, "slice 3, item 12"),
-    ({"rng": "threefry"}, "'philox' or 'threefry4'"),
+    ({"rng": "tpu"}, "use rng='device'"),
+    ({"rng": "threefry", "box": "hc16"}, "only applies to rng='device'"),
+    ({"rng": "bogus"}, "unknown rng 'bogus'"),
+    ({"rng": "xorwow"}, "unknown rng 'xorwow'"),
+    ({"rng": "threefry4", "fast_sqrt": True}, "fast_sqrt=True"),
+    ({"box": "hc16f"}, "packed 16-bit phases"),
+    ({"box": "polar"}, "unknown box"),
+    ({"rot": 3}, "rot must be 1, 2, 4 or 8"),
+    ({"rot": 1, "antithetic": True}, "contradicts rot=1"),
 ])
 def test_wrapper_rejects_bad_arguments(kwargs, match):
     args = dict(params=_pv(PARAMS[0]), seed_words=(1, 2), epoch=0,

@@ -74,15 +74,15 @@ def test_compute_before_init_raises():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"rng": "threefry4", "rot": 2}, "slice 3"),
-    ({"rng": "threefry"}, "slice 3"),
-    ({"rng": "tpu"}, "slice 3"),
+    ({"rng": "device"}, "requires engine='cuda'"),
+    ({"rng": "tpu", "engine": "cuda"}, "use rng='device'"),
+    ({"rng": "tpu"}, "use rng='device'"),
     ({"rng": "mrg32k3a", "rot": 2}, "no rot/antithetic"),
     ({"rng": "xorwow", "antithetic": True}, "no rot/antithetic"),
     ({"rng": "bogus"}, "unknown rng"),
-    ({"rot": 4}, "slice 3"),
+    ({"rot": 1, "antithetic": True}, "contradicts rot=1"),
     ({"rot": 3}, "rot must be"),
-    ({"antithetic": True}, "slice 3"),
+    ({"engine": "qmc", "rng": "device"}, "rng must stay 'philox'"),
     ({"engine": "qmc", "rot": 4}, "no rot/antithetic"),
     ({"engine": "qmc", "antithetic": True}, "no rot/antithetic"),
     ({"engine": "qmc", "rng": "threefry4"}, "rng must stay 'philox'"),
@@ -91,8 +91,8 @@ def test_compute_before_init_raises():
     ({"engine": "scan", "scramble": "shift"}, "engine='qmc' only"),
     ({"engine": "pallas"}, "unknown engine"),
     ({"device": "meta"}, "neither cpu nor cuda"),
-    ({"rng": "threefry"}, r"slice 3 \(FE variants\), item 10"),
-    ({"rng": "tpu"}, r"slice 3 \(FE variants\), item 12"),
+    ({"rng": "xorwow", "rot": 8}, "no rot/antithetic"),
+    ({"rot": 16}, "rot must be 1, 2, 4 or 8"),
 ])
 def test_unsupported_options_raise_value_error(kw, match):
     with pytest.raises(ValueError, match=match):
@@ -143,6 +143,61 @@ def test_threefry4_cuda_engine_on_cpu_equals_scan_engine():
     m = _pricer()
     m.init(5)
     assert m.compute().price != prices[0][0]     # philox: another stream
+
+
+ROT_CFG = SimConfig(NTPB=256, NB=4, N=10)      # 1024 groups
+
+
+@pytest.mark.parametrize("kw,rel", [
+    ({"antithetic": True}, 1e-5), ({"rot": 4}, 1e-5), ({"rot": 8}, 2e-4)])
+def test_rotation_sampling_matches_nmch_tpu_scan(kw, rel):
+    """NMCH_FE with rot 2 (antithetic), 4, 8 on the scan engine, and on
+    the cuda engine's plain version (device cpu, bitwise the scan), price
+    within rel 1e-5 of nmch_tpu's scan engine at two epochs (rot 8: rel
+    2e-4, the jitted XLA rounding that tests/test_torch_rot.py measures;
+    op by op the two agree within 1e-6)."""
+    jm = nmch_tpu.NMCH_FE(nmch_tpu.SimConfig(NTPB=256, NB=4, N=10),
+                          nmch_tpu.HestonParams(), engine="scan", **kw)
+    jm.init(1234)
+    want = [jm.compute() for _ in range(2)]
+    for engine in ("scan", "cuda"):
+        m = NMCH_FE(ROT_CFG, HestonParams(), engine=engine, device="cpu",
+                    **kw)
+        assert m.rot == jm.rot and m.antithetic == jm.antithetic
+        m.init(1234)
+        for w in want:
+            got = m.compute()
+            for a, b in ((got.price, w.price),
+                         (got.price_squared, w.price_squared)):
+                assert abs(a - b) <= rel * abs(b)
+
+
+@pytest.mark.parametrize("kw", [{"rot": 4}, {"rot": 8}, {"rng": "threefry"},
+                                {"rng": "threefry", "antithetic": True}])
+def test_rot_and_threefry_cuda_engine_on_cpu_equals_scan_engine(kw):
+    prices = []
+    for engine in ("cuda", "scan"):
+        m = _pricer(engine=engine, **kw)
+        m.init(5)
+        prices.append((m.compute().price, m.compute().price_squared))
+    assert prices[0] == prices[1]
+    m = _pricer()
+    m.init(5)
+    assert m.compute().price != prices[0][0]
+
+
+def test_device_rng_on_the_cuda_engine_prices_within_oracle_bar():
+    """rng="device" (cuda engine only; its plain version on the CPU) at
+    rot 1 and 4: finite, reproducible, within 3 ci + 2e-3 of the oracle."""
+    for rot in (1, 4):
+        m = _pricer(engine="cuda", rng="device", rot=rot)
+        m.init(1234)
+        res = m.compute()
+        m2 = _pricer(engine="cuda", rng="device", rot=rot)
+        m2.init(1234)
+        assert m2.compute().price == res.price
+        oracle = t_heston.heston_call_undiscounted(m.params)
+        assert abs(res.price - oracle) <= 3 * res.ci_error + 2e-3
 
 
 def test_params_and_config_cross_package():
@@ -211,6 +266,29 @@ def test_checkpoint_from_nmch_tpu_resumes_the_stream(tmp_path):
     m2 = _pricer()
     m2.load_state(str(path))
     assert m2.compute().price == m.compute().price
+
+
+def test_rot4_checkpoint_from_nmch_tpu_resumes_the_stream(tmp_path):
+    """A checkpoint nmch_tpu writes at rot 4 resumes the port's rot-4
+    stream at the same epoch, with nmch_tpu's next moments (rel 1e-5), on
+    the scan engine and the cuda engine's plain version."""
+    jm = nmch_tpu.NMCH_FE(nmch_tpu.SimConfig(NTPB=256, NB=4, N=10, seed=77),
+                          nmch_tpu.HestonParams(theta=0.12), engine="scan",
+                          rot=4)
+    jm.init(77)
+    jm.compute()
+    path = tmp_path / "ckpt.json"
+    jm.save_state(str(path))
+    want = jm.compute()
+    for engine in ("scan", "cuda"):
+        m = NMCH_FE(ROT_CFG, HestonParams(), engine=engine, device="cpu",
+                    rot=4)
+        m.load_state(str(path))
+        assert m.streams.epoch == 1 and m.params.theta == 0.12
+        got = m.compute()
+        assert abs(got.price - want.price) <= 1e-5 * want.price
+        assert abs(got.price_squared - want.price_squared) <= \
+            1e-5 * want.price_squared
 
 
 def test_save_before_init_raises(tmp_path):

@@ -140,18 +140,25 @@ def test_fe_sweep_plain_matches_nmch_tpu_threefry4(epoch0, N):
         assert (_rel(g.numpy(), w) <= REL).all()
 
 
-@pytest.mark.parametrize("rng", ["philox", "threefry4"])
+@pytest.mark.parametrize("rng", ["philox", "threefry4", "device"])
 @pytest.mark.parametrize("epoch0", [0, WRAP])
 def test_fe_sweep_point_is_the_single_point_run_bitwise(rng, epoch0):
+    """Point p is the single-point run at epoch (epoch0 + p) mod 2^32,
+    base_path 0: the scan golden and K1's plain version (for "device",
+    the card's stream in place of the TPU kernel's hardware generator,
+    which has no nmch_tpu oracle on the CPU)."""
     pm = grid_params(_points(4))
     N, n_paths = 9, 256
     m, m2 = fe_sweep_plain(pm, _key(), epoch0, N=N, n_paths=n_paths,
                            rng=rng)
     for p, pv in enumerate(pm):
+        epoch = (epoch0 + p) & 0xFFFFFFFF
         one = tfe.fe_moments_scan(pv, N, tfe.path_index_grid(n_paths),
-                                  (epoch0 + p) & 0xFFFFFFFF, *_key(),
-                                  rng=rng)
-        assert torch.equal(m[p], one[0]) and torch.equal(m2[p], one[1])
+                                  epoch, *_key(), rng=rng)
+        k1 = tfe.fe_moments_kernel_plain(pv, _key(), epoch, 0, N=N,
+                                         n_paths=n_paths, rng=rng)
+        for want in (one, k1):
+            assert torch.equal(m[p], want[0]) and torch.equal(m2[p], want[1])
 
 
 def test_sweep_epochs_wrap():
@@ -262,9 +269,10 @@ def test_wrappers_on_cpu_are_the_plain_sweep_bitwise():
     launches = (fe_sweep_cuda.launches, em_sweep_cuda.launches,
                 dict(fe_sweep_cuda.variant_launches),
                 dict(em_sweep_cuda.variant_launches))
-    for a, b in zip(fe_sweep_cuda(pm, _key(), WRAP, rng="threefry4", **kw),
-                    fe_sweep_plain(pm, _key(), WRAP, rng="threefry4", **kw)):
-        assert torch.equal(a, b)
+    for rng in ("threefry4", "device"):
+        for a, b in zip(fe_sweep_cuda(pm, _key(), WRAP, rng=rng, **kw),
+                        fe_sweep_plain(pm, _key(), WRAP, rng=rng, **kw)):
+            assert torch.equal(a, b)
     got = em_sweep_cuda(pm, _key(), 3, conditional=True, poisson_cut=64.0,
                         per_path=True, **kw)
     want = em_sweep_plain(pm, _key(), 3, conditional=True, poisson_cut=64.0,
@@ -288,8 +296,8 @@ def test_wrappers_on_cpu_are_the_plain_sweep_bitwise():
     ({"N": 0}, "N="),
     ({"epoch0": 2**32}, "uint32"),
     ({"seed_words": (-1, 0)}, "uint32"),
-    ({"rng": "tpu"}, "slice 3, item 12"),
-    ({"rng": "bogus"}, "'philox' or 'threefry4'"),
+    ({"rng": "tpu"}, "use rng='device'"),
+    ({"rng": "bogus"}, "kernel takes 'philox'"),
     ({"device": "meta"}, "neither cpu nor cuda"),
 ])
 def test_wrappers_reject_bad_arguments(fn, kwargs, match):
