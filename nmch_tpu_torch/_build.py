@@ -29,7 +29,9 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "fe.cu", CSRC / "fe_device.cu", CSRC / "em.cu",
-           CSRC / "sweep.cu", CSRC / "fe_stateful.cu", CSRC / "qmc.cu")
+           CSRC / "sweep.cu", CSRC / "fe_stateful.cu", CSRC / "qmc.cu",
+           CSRC / "reduction.cu", CSRC / "qmc_fused.cu",
+           CSRC / "chain_probe.cu")
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_ROOT = _PKG.parent / "build" / "nmch_tpu_torch"
 LIB_NAME = "libnmch_tpu_torch.so"
@@ -135,6 +137,17 @@ def load_library() -> tuple[ctypes.CDLL, BuildInfo]:
         [ctypes.c_float] * 8 + [ctypes.c_void_p] * 2
         + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 3)
     lib.nmch_qmc_payoff_sums.restype = ctypes.c_int
+    lib.nmch_red_sum.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 3)
+    lib.nmch_red_sum.restype = ctypes.c_int
+    lib.nmch_qmc_fused_sums.argtypes = (
+        [ctypes.c_float] * 8 + [ctypes.c_void_p] * 4
+        + [ctypes.c_int64] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+    lib.nmch_qmc_fused_sums.restype = ctypes.c_int
+    lib.nmch_chain.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p])
+    lib.nmch_chain.restype = ctypes.c_int
     lib.nmch_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nmch_cuda_error_string.restype = ctypes.c_char_p
     return lib, info

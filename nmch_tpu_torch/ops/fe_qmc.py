@@ -35,6 +35,13 @@ up to the normals:
    ``SimResult(m, m2, n_paths).ci_error`` is the Student-t CI of the
    replicate means.
 
+The fused bridge + simulator of ``benchmarks/qmc_fused_probe.py`` (TPU
+kernels K9 and K10) has its plain version here too,
+``qmc_payoff_sums_fused_plain``: the increments made from the normals
+chunk by chunk, in the kernel's summation order, at the precision
+"HIGHEST" (float32), "HIGH" (three bf16 hi/lo products) or "DEFAULT"
+(one bf16 product); its kernel is ``ops/qmc_fused_cuda.py``.
+
 Sums are float64 here (the payoffs are float32), where ``nmch_tpu`` sums
 in float32; the chunk schedule, the 2^29-element cap per factor and the
 compensated sum over chunks are ``nmch_tpu``'s.
@@ -292,24 +299,142 @@ def _sim_payoff(params_vec, N: int, dW1, dW2) -> torch.Tensor:
     return torch.clamp_min(S - S_0, 0.0)
 
 
-def qmc_payoff_sums_plain(params, dW1, dW2, n_shifts: int):
-    """Plain K6: per-replicate (sum payoff, sum payoff^2), float64 (R,),
-    of the paths of (N, M) increments laid out replicate-major.
-
-    The kernel's form: the FE constants at sqrt_dt = 1, so each step
-    takes dW directly; payoff and payoff^2 in float32, summed in
-    float64."""
-    T, S_0, v_0, r, k, rho, theta, sigma = params.to(dW1.device).unbind()
-    N, M = dW1.shape
+def _kernel_form_start(params, N: int, M: int, device):
+    """(S, v, constants, S_0) of M paths of the kernel form: the FE
+    constants at sqrt_dt = 1, so each step takes dW directly."""
+    T, S_0, v_0, r, k, rho, theta, sigma = params.to(device).unbind()
     dt = T / N
     sqrt_rho_c = sqrt_f32(1.0 - rho * rho)
     cst = fe_consts(r, k, theta, sigma, rho, sqrt_rho_c, dt, 1.0)
-    ones = torch.ones(M, dtype=torch.float32, device=dW1.device)
-    S, v = ones * S_0, ones * v_0
+    ones = torch.ones(M, dtype=torch.float32, device=device)
+    return ones * S_0, ones * v_0, cst, S_0
+
+
+def _replicate_sums(S, S_0, n_shifts: int):
+    """Per-replicate (sum payoff, sum payoff^2), float64 (R,): payoff and
+    payoff^2 in float32, summed in float64."""
+    pay = torch.clamp_min(S - S_0, 0.0).reshape(n_shifts, -1)
+    return pay.double().sum(1), (pay * pay).double().sum(1)
+
+
+def qmc_payoff_sums_plain(params, dW1, dW2, n_shifts: int):
+    """Plain K6: per-replicate (sum payoff, sum payoff^2), float64 (R,),
+    of the paths of (N, M) increments laid out replicate-major, in the
+    kernel's form."""
+    N, M = dW1.shape
+    S, v, cst, S_0 = _kernel_form_start(params, N, M, dW1.device)
     for t in range(N):
         S, v = fe_step(S, v, dW1[t], dW2[t], cst)
-    pay = torch.clamp_min(S - S_0, 0.0).reshape(n_shifts, M // n_shifts)
-    return pay.double().sum(1), (pay * pay).double().sum(1)
+    return _replicate_sums(S, S_0, n_shifts)
+
+
+# the fused bridge + simulator (benchmarks/qmc_fused_probe.py, kernels K9
+# and K10): the precision of its bridge product
+PRECISIONS = ("HIGHEST", "HIGH", "DEFAULT")
+
+
+def pick_time_chunk(N: int) -> int:
+    """Largest divisor of N <= 125: the time steps of one chunk of the
+    fused simulator (``nmch_tpu``'s ``_pick_time_chunk``)."""
+    return largest_divisor_leq(N, 125)
+
+
+def hilo_split(x: torch.Tensor):
+    """(hi, lo) bf16 with hi + lo ~ x: hi = x rounded to bf16, lo = the
+    residual rounded to bf16 (qmc_fused_probe.py:355-358)."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    return hi, lo
+
+
+def check_fused(params, z1, z2, A_scaled, n_shifts: int, precision: str):
+    """Validate the fused simulator's arguments; returns (N, M)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r} (expected one "
+                         f"of {', '.join(PRECISIONS)})")
+    if not isinstance(params, torch.Tensor) or params.dtype != torch.float32 \
+            or params.shape != (8,) or params.device.type != "cpu":
+        raise ValueError("params must be a float32 tensor of shape (8,) on "
+                         "the CPU")
+    for name, z in (("z1", z1), ("z2", z2)):
+        if not isinstance(z, torch.Tensor) or z.dtype != torch.float32 \
+                or z.dim() != 2 or not z.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor "
+                             f"of shape (N, M)")
+    if z1.shape != z2.shape or z1.device != z2.device:
+        raise ValueError(f"z1 {tuple(z1.shape)} on {z1.device} and z2 "
+                         f"{tuple(z2.shape)} on {z2.device} differ")
+    N, M = z1.shape
+    if not isinstance(A_scaled, torch.Tensor) \
+            or A_scaled.dtype != torch.float32 \
+            or A_scaled.shape != (N, N) or A_scaled.device != z1.device \
+            or not A_scaled.is_contiguous():
+        raise ValueError(f"A_scaled must be a contiguous float32 tensor of "
+                         f"shape ({N}, {N}) on {z1.device}")
+    if not 1 <= int(n_shifts) <= 65535:
+        raise ValueError(f"n_shifts={n_shifts} must be in [1, 65535]")
+    if M % (1024 * n_shifts):
+        raise ValueError(f"M={M} must be a multiple of 1024*n_shifts")
+    return N, M
+
+
+def fused_operands(A_scaled: torch.Tensor, precision: str):
+    """The bridge matrix's operands of each product, as float32: HIGHEST
+    (A,), HIGH (A_hi, A_lo), DEFAULT (A_hi,), the bf16 parts widened
+    (exactly) to float32."""
+    if precision == "HIGHEST":
+        return (A_scaled,)
+    hi, lo = hilo_split(A_scaled)
+    return (hi.float(), lo.float()) if precision == "HIGH" else (hi.float(),)
+
+
+def _fused_increments(a_ops, z, rows: slice, precision: str):
+    """The increments of time steps ``rows`` from the normals z (N, M),
+    each element a sequential float32 multiply-then-add over the bridge
+    nodes j = 0..N-1: HIGHEST sum(A z); HIGH (hh + hl) + lh of the three
+    bf16 products Ahi zhi, Ahi zlo, Alo zhi, each accumulated on its own
+    (qmc_fused_probe.py:314-322); DEFAULT Ahi zhi."""
+    if precision == "HIGHEST":
+        terms = [(a_ops[0], z)]
+    else:
+        zh, zl = hilo_split(z)
+        terms = [(a_ops[0], zh)]
+        if precision == "HIGH":
+            terms += [(a_ops[0], zl), (a_ops[1], zh)]
+    parts = []
+    for a, zz in terms:
+        a = a[rows]
+        acc = torch.zeros(a.shape[0], z.shape[1], dtype=torch.float32,
+                          device=z.device)
+        for j in range(z.shape[0]):
+            acc += a[:, j:j + 1] * zz[j].float()
+        parts.append(acc)
+    return parts[0] if len(parts) == 1 else (parts[0] + parts[1]) + parts[2]
+
+
+def qmc_payoff_sums_fused_plain(params, z1, z2, A_scaled, n_shifts: int, *,
+                                precision: str = "HIGHEST"):
+    """Plain K9/K10: per-replicate (sum payoff, sum payoff^2), float64
+    (n_shifts,), of FE paths driven by the bridge product of the normals.
+
+    z1, z2: float32 (N, M) bridge-ordered unit normals
+    (``qmc_normals_mxu``), M a multiple of 1024 * n_shifts; A_scaled:
+    float32 (N, N), sqrt(dt) * ``bb_increment_matrix(N)``.  The kernel's
+    order: per chunk of ``pick_time_chunk(N)`` time steps, the chunk's
+    increments (``_fused_increments``), then its FE steps in the kernel
+    form.  The sums are float64 in a fixed order, as K6's are (the TPU
+    kernel sums in float32)."""
+    N, M = check_fused(params, z1, z2, A_scaled, n_shifts, precision)
+    S, v, cst, S_0 = _kernel_form_start(params, N, M, z1.device)
+    a_ops = fused_operands(A_scaled, precision)
+    nc = pick_time_chunk(N)
+    for c0 in range(0, N, nc):
+        rows = slice(c0, c0 + nc)
+        dW1 = _fused_increments(a_ops, z1, rows, precision)
+        dW2 = _fused_increments(a_ops, z2, rows, precision)
+        for t in range(nc):
+            S, v = fe_step(S, v, dW1[t], dW2[t], cst)
+    return _replicate_sums(S, S_0, n_shifts)
 
 
 def qmc_replicate_payoff_sums(params_vec, epoch, k0, k1, *, N: int,

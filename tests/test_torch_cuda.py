@@ -285,3 +285,74 @@ def test_qmc_engine_prices_within_oracle_bar(dev):
     assert res.synthesized_moments
     bar = 3 * res.ci_error + 2e-3
     assert abs(res.price - heston_call_undiscounted(m.params)) <= bar
+
+
+@pytest.mark.parametrize("tiles", [4, 7])
+def test_reduction_kernel_is_bitwise_plain(dev, tiles):
+    """K7 (csrc/reduction.cu): the tile order is the plain version's, so the
+    f32 sum is bitwise equal on random data; the counter rises."""
+    from nmch_tpu_torch.ops.reduction import red_sum_plain
+    from nmch_tpu_torch.ops.reduction_cuda import red_sum_cuda
+    g = torch.Generator(device=dev)
+    g.manual_seed(tiles)
+    x = torch.rand((tiles * 512, 128), generator=g, device=dev)
+    before = red_sum_cuda.launches
+    k = red_sum_cuda(x)
+    assert red_sum_cuda.launches == before + 1
+    assert torch.equal(k, red_sum_plain(x))
+    assert torch.equal(k, red_sum_cuda(x))
+    half = torch.full((tiles * 512, 128), 0.5, device=dev)
+    assert red_sum_cuda(half).item() == tiles * 512 * 64
+
+
+@pytest.mark.parametrize("dtype,rows", [(torch.float32, 128),
+                                        (torch.bfloat16, 256)])
+@pytest.mark.parametrize("with_sqrt,rsqrt", [(False, False), (True, False),
+                                             (True, True)])
+def test_chain_kernel_matches_plain(dev, dtype, rows, with_sqrt, rsqrt):
+    """K8 (csrc/chain_probe.cu) at K=64: float32 abs/sqrt and bf16 abs
+    bitwise, rsqrt and the bf16x2 roots within one ulp of the dtype."""
+    import numpy as np
+    from nmch_tpu_torch.ops.chain import chain_plain
+    from nmch_tpu_torch.ops.chain_cuda import chain_cuda
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0.5, 1.5, (rows, 128))).to(device=dev, dtype=dtype)
+    before = chain_cuda.launches
+    k = chain_cuda(x, K=64, with_sqrt=with_sqrt, rsqrt=rsqrt)
+    assert chain_cuda.launches == before + 1 and k.dtype == dtype
+    p = chain_plain(x, K=64, with_sqrt=with_sqrt, rsqrt=rsqrt)
+    if not with_sqrt or (dtype == torch.float32 and not rsqrt):
+        assert torch.equal(k, p)
+    else:
+        ulp = torch.ldexp(torch.ones_like(p, dtype=torch.float32),
+                          torch.frexp(p.float())[1] - 1
+                          - (23 if dtype == torch.float32 else 7))
+        assert ((k.float() - p.float()).abs() <= ulp).all()
+
+
+@pytest.mark.parametrize("precision", ["HIGHEST", "HIGH", "DEFAULT"])
+@pytest.mark.parametrize("N", [16, 101])
+def test_fused_qmc_kernel_matches_plain(dev, precision, N):
+    """K9/K10 (csrc/qmc_fused.cu) on the card's normals: per-replicate sums
+    at rel 1e-6 of the plain version's (float64 sums in another order),
+    bitwise repeats, the precision's counter rising."""
+    import numpy as np
+    from nmch_tpu_torch.ops import fe_qmc
+    from nmch_tpu_torch.ops.qmc_fused_cuda import KERNEL_NAMES, \
+        qmc_payoff_sums_fused_cuda
+    pv = HestonParams().as_tensor("cpu")
+    z1, z2 = fe_qmc.qmc_normals_mxu(N, 2048, 1, 1234, 0, n_shifts=8,
+                                    device=dev)
+    A = torch.from_numpy(np.sqrt(1.0 / N).astype(np.float32)
+                         * fe_qmc.bb_increment_matrix(N)).to(dev)
+    name = KERNEL_NAMES[precision]
+    before = qmc_payoff_sums_fused_cuda.variant_launches.get(name, 0)
+    k = torch.stack(qmc_payoff_sums_fused_cuda(pv, z1, z2, A, 8,
+                                               precision=precision))
+    again = torch.stack(qmc_payoff_sums_fused_cuda(pv, z1, z2, A, 8,
+                                                   precision=precision))
+    assert qmc_payoff_sums_fused_cuda.variant_launches[name] == before + 2
+    assert torch.equal(k, again)
+    p = torch.stack(fe_qmc.qmc_payoff_sums_fused_plain(
+        pv, z1, z2, A, 8, precision=precision))
+    torch.testing.assert_close(k, p, rtol=1e-6, atol=0)
