@@ -142,7 +142,9 @@ def load_library() -> tuple[ctypes.CDLL, BuildInfo]:
     lib.nmch_red_sum.restype = ctypes.c_int
     lib.nmch_qmc_fused_sums.argtypes = (
         [ctypes.c_float] * 8 + [ctypes.c_void_p] * 4
-        + [ctypes.c_int64] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+        + [ctypes.c_int64] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int64] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_void_p])
     lib.nmch_qmc_fused_sums.restype = ctypes.c_int
     lib.nmch_chain.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 3

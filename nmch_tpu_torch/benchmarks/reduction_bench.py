@@ -14,8 +14,11 @@ script does the same on the card:
   the JAX script).
 
 Every element is 0.5, so every tile sum is 32768 and every partial is
-exact: the kernel's sum must be n/2, which the script checks.  Times are
-CUDA events over 5 queued runs after one warm-up.
+exact: the kernel's sum must be n/2, which the script checks.  The two
+routes are timed in turns (kernel, torch.sum, torch.sum, kernel), five
+times over, so that neither route's place in the order decides the
+comparison: a turn is one warm-up and then 5 queued runs timed by CUDA
+events, and a route's time is the median of its 10 turns.
 
 Run: python -m nmch_tpu_torch.benchmarks.reduction_bench   (on the card)
 """
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 
 import torch
@@ -35,6 +39,8 @@ from ..utils.timing import card_name_and_power_limit, timed_blocked
 
 SIZES = (102_400_000, 1_024_000_000)   # reduction_bench.py:61
 REPS = 5
+TURNS = 5
+ORDER = ("cuda+kahan", "torch.sum", "torch.sum", "cuda+kahan")
 
 
 def rows_for(n_elems: int) -> int:
@@ -42,17 +48,29 @@ def rows_for(n_elems: int) -> int:
     return (n_elems // LANES // TILE) * TILE
 
 
-def measure(n_elems: int, device, reps: int = REPS) -> list:
-    """One record per route ({name, n, ms, gbytes_per_s, sum}) of the sum
-    of rows_for(n_elems) x 128 halves on ``device``."""
+def measure(n_elems: int, device, reps: int = REPS,
+            turns: int = TURNS) -> list:
+    """One record per route ({name, n, ms, ms_turns, gbytes_per_s, sum})
+    of the sum of rows_for(n_elems) x 128 halves on ``device``: ``turns``
+    rounds of ORDER, each turn ``reps`` queued runs after a warm-up;
+    ``ms`` is the median of the route's turns."""
     rows = rows_for(n_elems)
     n = rows * LANES
     x = torch.full((rows, LANES), 0.5, dtype=torch.float32, device=device)
+    routes = {"cuda+kahan": red_sum_cuda, "torch.sum": torch.sum}
+    times = {name: [] for name in routes}
+    sums = {}
+    for _ in range(turns):
+        for name in ORDER:
+            val, ms = timed_blocked(lambda fn=routes[name]: fn(x), device,
+                                    reps)
+            times[name].append(ms)
+            sums[name] = float(val)
     recs = []
-    for name, fn in (("cuda+kahan", red_sum_cuda), ("torch.sum", torch.sum)):
-        val, ms = timed_blocked(lambda fn=fn: fn(x), device, reps)
-        recs.append({"name": name, "n": n, "ms": ms,
-                     "gbytes_per_s": n * 4 / ms / 1e6, "sum": float(val)})
+    for name, ts in times.items():
+        ms = statistics.median(ts)
+        recs.append({"name": name, "n": n, "ms": ms, "ms_turns": ts,
+                     "gbytes_per_s": n * 4 / ms / 1e6, "sum": sums[name]})
     return recs
 
 
@@ -66,8 +84,10 @@ def main(argv=None) -> int:
         for rec in measure(n_elems, device):
             recs.append(rec)
             print(f"{rec['name']:13s} {rec['n'] / 1e6:7.1f}M elems: "
-                  f"{rec['ms']:7.2f} ms ({rec['gbytes_per_s']:.0f} GB/s)  "
-                  f"sum={rec['sum']:.1f}", flush=True)
+                  f"{rec['ms']:7.4f} ms ({rec['gbytes_per_s']:.0f} GB/s; "
+                  f"turns {min(rec['ms_turns']):.4f}-"
+                  f"{max(rec['ms_turns']):.4f})  sum={rec['sum']:.1f}",
+                  flush=True)
     print(json.dumps({"reduction": recs}))
     exact = all(r["sum"] == r["n"] / 2 for r in recs
                 if r["name"] == "cuda+kahan")

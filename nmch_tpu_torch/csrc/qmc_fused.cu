@@ -1,7 +1,7 @@
 // The QMC bridge product fused into the FE path simulator on Hopper
 // (sm_90a): Brownian increments made from the bridge-ordered normals inside
 // the kernel and stepped at once, so that no increment reaches device
-// memory.
+// memory; each increment is summed over the bridge matrix's non-zeros only.
 //
 // Replaces benchmarks/qmc_fused_probe.py::_fused_kernel (K9, behind
 // qmc_payoff_sums_fused, :160) and ::_fused_kernel_hilo (K10, behind
@@ -22,37 +22,53 @@
 // constants at sqrt_dt = 1, as K6 does; the outputs are each replicate's
 // (sum payoff, sum payoff^2), payoff = max(S_N - S_0, 0).
 //
-// Design: one thread per point keeps S and v in registers across all N
-// steps. The time axis runs in tiles of R steps: the thread holds R
-// increments of each factor (and of each product at kHigh) as register
-// accumulators, walks the bridge nodes j = 0..N-1 reading its own column
-// of z1 and z2 (a warp reads 32 neighbouring points of a row: one 128-byte
-// line per factor), and takes the R rows of A from shared-memory tiles of
-// 128 nodes that the block loads together (every thread reads the same
-// A values, a broadcast of 16 bytes per load). After the tile's last node
-// it steps its R increments at once. This is where the card differs from
-// the TPU: the TPU kept a point tile's (N, 8, 128) normals, 4 MB in f32,
-// resident in VMEM for all chunks; a block's share here is N x 128 floats
-// of each factor, 1 MB at N = 1000, far over 228 KB of shared memory, so
-// each tile of R steps re-reads the thread's column of z from L2 and device
-// memory (N / R times in all).
+// The sparse walk. A bridge row has O(log N) non-zeros (10,976 of 10^6 at
+// N = 1000: 10 or 11 a row), so the kernel takes a plan of A's non-zero
+// pattern, built by the wrapper (ops/qmc_fused_cuda.py::fused_plan): the
+// time axis in tiles of R rows, and for each tile the distinct columns its
+// rows touch (at most kSlabCols; a row with more is cut into pieces of
+// kSlabCols columns, at R = 1) and each row's non-zeros in ascending
+// column order as (slot among the tile's columns, row, column). One thread
+// per point keeps S and v in registers across all N steps. Per segment (a
+// tile, or a piece of a long row), the block copies the segment's plan
+// entries into shared memory with A's operand values gathered from a_hi
+// and a_lo, and each thread loads its own point's z at the segment's
+// columns once (a warp reads one 128-byte line per column and factor),
+// splits them into bf16 hi/lo once where P needs it, and keeps them in a
+// shared slab of (columns x 128 points), 8 bytes a column and point (at
+// kHigh the two bf16 halves of each factor packed in one word). Then it
+// walks the segment's rows: each row's non-zeros, one product per
+// non-zero and operand pair, and fe_step when the row ends. The coarse
+// bridge nodes recur in every tile and are read again from L2 (at N =
+// 1000, R = 16: 1,623 column loads per point, 1.6x the normals).
 //
-// What bounds it on an H100: the float32 products, 2 N^2 M per factor (a
-// multiply and an add each). -fmad=false keeps them two instructions (the
-// plain version's roundings), so the least time is 4 N^2 M instructions
-// over the FP32 issue rate (62.7 ms at 2^19 points x N = 1000 on a 1980
-// MHz card; 31.4 ms if they were FMAs); kHigh does three products. The z
-// re-reads, 8 N M (N / R) bytes, come second (39 ms at R = 32). A simple
-// SIMT kernel: the bf16 passes on the tensor cores (mma/wgmma) are later
-// work.
+// Why this is bitwise the dense order: a skipped node has A = 0 (and so
+// a_hi = a_lo = 0), whose product with a finite z is +0 or -0. An
+// accumulator starts at +0, and +0 + (+-0) = +0 under round-to-nearest; a
+// non-zero x + (+-0) = x exactly; an exact cancellation gives +0, so an
+// accumulator is never -0 and adding a signed zero never changes it.
+// -fmad=false keeps every product and add its own rounding, so every
+// increment and payoff is bitwise the plain version's (nmch_tpu_torch/
+// ops/fe_qmc.py::qmc_payoff_sums_fused_plain, which keeps the dense loop),
+// and the sums differ from it only by the order of the float64 additions
+// (reduce.cuh, as in qmc.cu). Any A works: a dense one takes the same code
+// at R = 1 with its rows in pieces, and is slow.
 //
-// Numerics: -fmad=false and IEEE sqrtf: every increment and payoff is
-// bitwise the plain version's (nmch_tpu_torch/ops/fe_qmc.py::
-// qmc_payoff_sums_fused_plain), and the sums differ from it only by the
-// order of the float64 additions (reduce.cuh, as in qmc.cu).
+// What bounds it on an H100: z1 and z2 read once, 8 N M bytes over 3.35
+// TB/s (1.253 ms at 2^19 points x N = 1000); the products on the non-zeros
+// (4 nnz M thread instructions at HIGHEST, 12 nnz M at kHigh: 0.69 / 2.1
+// ms at the FP32 issue rate) and fe_step's own (17 float and MUFU
+// instructions a path-step, 0.27 ms) come under it. The walk itself issues
+// about 10 instructions per non-zero and point (the entry and slab loads
+// from shared memory, the products, the loop) and about 90 a row, so the
+// kernel is issue-bound at a few times the bytes bound. A simple SIMT
+// kernel; shared memory holds at most 32 KB of slab plus 16 KB of plan a
+// block (32-34 KB for the bridge at N = 1000), so about six blocks of 128
+// threads fit on an SM.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "fe_path.cuh"
 #include "reduce.cuh"
@@ -64,13 +80,25 @@ using nmch::kPathThreads;
 constexpr int kHighest = 0;
 constexpr int kHigh = 1;
 constexpr int kDefault = 2;
-constexpr int kNodeTile = 128;               // bridge nodes per A tile
+constexpr int kSlabCols = 32;                // columns a segment stages
+constexpr int kMaxSegEntries = 32 * kSlabCols;   // R <= 32 rows of them
 constexpr int64_t kMaxShifts = 65535;        // gridDim.y
 constexpr int64_t kMaxBlocks = 0x7FFFFFFF;   // gridDim.x
 
-// time steps per register tile: kHigh keeps three accumulators a step
+// a plan entry in shared memory: the slab offset of its column and A's
+// operand(s) at it
+struct __align__(8) Entry1 {
+  int off;
+  float a;
+};
+struct __align__(16) Entry2 {
+  int off;
+  float a;
+  float b;
+  int pad;
+};
 template <int P>
-constexpr int kRows = P == kHigh ? 16 : 32;
+using EntryT = typename std::conditional<P == kHigh, Entry2, Entry1>::type;
 
 // x rounded to the nearest bf16 (ties to even) and widened back to float32
 // (exact): torch's float -> bfloat16 conversion, for finite x
@@ -79,96 +107,106 @@ __device__ __forceinline__ float bf16_rn(float x) {
   return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
 }
 
+// a point's normal at one column as the slab keeps it
+template <int P>
+__device__ __forceinline__ uint32_t slab_word(float x) {
+  if (P == kHighest) return __float_as_uint(x);
+  const float h = bf16_rn(x);
+  if (P == kDefault) return __float_as_uint(h);
+  return __float_as_uint(h) | (__float_as_uint(bf16_rn(x - h)) >> 16);
+}
+
 template <int P>
 __global__ void __launch_bounds__(kPathThreads)
     qmc_fused_paths(nmch::FeParams p, const float* __restrict__ z1,
                     const float* __restrict__ z2,
                     const float* __restrict__ a_hi,
                     const float* __restrict__ a_lo, int N, int64_t M,
-                    int64_t n, double* __restrict__ partials) {
-  constexpr int R = kRows<P>;
-  constexpr int kTerms = P == kHigh ? 3 : 1;
-  constexpr int kStride = R + 4;   // padded, 16-byte aligned tile row
-  __shared__ __align__(16) float sa_hi[kNodeTile * kStride];
-  __shared__ __align__(16) float sa_lo[P == kHigh ? kNodeTile * kStride : 4];
+                    int64_t n, const int4* __restrict__ segs, int n_segs,
+                    const int* __restrict__ cols,
+                    const int* __restrict__ pieces,
+                    const int4* __restrict__ entries, int slab_cols,
+                    double* __restrict__ partials) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint2* slab = reinterpret_cast<uint2*>(smem);
+  EntryT<P>* plan = reinterpret_cast<EntryT<P>*>(
+      smem + sizeof(uint2) * kPathThreads * slab_cols);
+  const uint2* mine = slab + threadIdx.x;
   const nmch::FeConsts c = nmch::fe_consts(p, p.T / (float)N, 1.0f);
   const int64_t m =
       (int64_t)blockIdx.y * n + (int64_t)blockIdx.x * kPathThreads +
       threadIdx.x;
+  constexpr int kTerms = P == kHigh ? 3 : 1;
+  float acc1[kTerms];
+  float acc2[kTerms];
+#pragma unroll
+  for (int q = 0; q < kTerms; ++q) acc1[q] = acc2[q] = 0.0f;
   float S = p.S_0;
   float v = p.v_0;
-  for (int t0 = 0; t0 < N; t0 += R) {
-    float acc1[kTerms][R];
-    float acc2[kTerms][R];
-#pragma unroll
-    for (int q = 0; q < kTerms; ++q) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        acc1[q][r] = 0.0f;
-        acc2[q][r] = 0.0f;
+  int64_t e0 = 0;   // the segment's first entry
+  int pc = 0;       // the next piece (a row, or a piece of a long row)
+  for (int s = 0; s < n_segs; ++s) {
+    const int4 sg = __ldg(segs + s);   // col0, n_cols, n_entries, piece_end
+    __syncthreads();   // the previous segment's plan has been walked
+    for (int i = threadIdx.x; i < sg.z; i += kPathThreads) {
+      const int4 en = __ldg(entries + e0 + i);   // slot, row, col, 0
+      const int64_t g = (int64_t)en.y * N + en.z;
+      EntryT<P> x;
+      x.off = en.x * kPathThreads;
+      x.a = __ldg(a_hi + g);
+      if constexpr (P == kHigh) {
+        x.b = __ldg(a_lo + g);
+        x.pad = 0;
       }
+      plan[i] = x;
     }
-    for (int j0 = 0; j0 < N; j0 += kNodeTile) {
-      const int jn = min(kNodeTile, N - j0);
-      __syncthreads();   // the previous tile's readers are done
-      for (int e = threadIdx.x; e < R * kNodeTile; e += kPathThreads) {
-        const int r = e / kNodeTile;
-        const int j = e % kNodeTile;
-        const bool in = t0 + r < N && j < jn;
-        const int64_t g = (int64_t)(t0 + r) * N + j0 + j;
-        sa_hi[j * kStride + r] = in ? a_hi[g] : 0.0f;
+    e0 += sg.z;
+    // this thread's slab column: only it reads it, so no barrier is needed
+    // for the slab, only for the plan
+#pragma unroll 8
+    for (int k = 0; k < sg.y; ++k) {
+      const int64_t col = __ldg(cols + sg.x + k);
+      const float x1 = __ldg(z1 + col * M + m);
+      const float x2 = __ldg(z2 + col * M + m);
+      slab[k * kPathThreads + threadIdx.x] =
+          make_uint2(slab_word<P>(x1), slab_word<P>(x2));
+    }
+    __syncthreads();
+    int e = 0;
+    for (; pc < sg.w; ++pc) {
+      const int hdr = __ldg(pieces + pc);   // n_entries << 1 | ends_row
+      const int cnt = hdr >> 1;
+#pragma unroll 4
+      for (int i = 0; i < cnt; ++i) {
+        const EntryT<P> en = plan[e + i];
+        const uint2 w = mine[en.off];
         if constexpr (P == kHigh) {
-          sa_lo[j * kStride + r] = in ? a_lo[g] : 0.0f;
+          const float h1 = __uint_as_float(w.x & 0xFFFF0000u);
+          const float l1 = __uint_as_float(w.x << 16);
+          const float h2 = __uint_as_float(w.y & 0xFFFF0000u);
+          const float l2 = __uint_as_float(w.y << 16);
+          acc1[0] = acc1[0] + en.a * h1;
+          acc2[0] = acc2[0] + en.a * h2;
+          acc1[1] = acc1[1] + en.a * l1;
+          acc2[1] = acc2[1] + en.a * l2;
+          acc1[2] = acc1[2] + en.b * h1;
+          acc2[2] = acc2[2] + en.b * h2;
+        } else {
+          acc1[0] = acc1[0] + en.a * __uint_as_float(w.x);
+          acc2[0] = acc2[0] + en.a * __uint_as_float(w.y);
         }
       }
-      __syncthreads();
-      const float* col1 = z1 + (int64_t)j0 * M + m;
-      const float* col2 = z2 + (int64_t)j0 * M + m;
-#pragma unroll 2
-      for (int j = 0; j < jn; ++j) {
-        const float x1 = __ldg(col1 + (int64_t)j * M);
-        const float x2 = __ldg(col2 + (int64_t)j * M);
-        const float h1 = P == kHighest ? x1 : bf16_rn(x1);
-        const float h2 = P == kHighest ? x2 : bf16_rn(x2);
-        const float l1 = P == kHigh ? bf16_rn(x1 - h1) : 0.0f;
-        const float l2 = P == kHigh ? bf16_rn(x2 - h2) : 0.0f;
-        const float4* ah = reinterpret_cast<const float4*>(sa_hi + j * kStride);
-        const float4* al = reinterpret_cast<const float4*>(sa_lo + j * kStride);
-#pragma unroll
-        for (int q = 0; q < R / 4; ++q) {
-          const float4 a4 = ah[q];
-          const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int r = 4 * q + u;
-            acc1[0][r] = acc1[0][r] + a[u] * h1;
-            acc2[0][r] = acc2[0][r] + a[u] * h2;
-          }
-          if constexpr (P == kHigh) {
-            const float4 b4 = al[q];
-            const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const int r = 4 * q + u;
-              acc1[1][r] = acc1[1][r] + a[u] * l1;
-              acc2[1][r] = acc2[1][r] + a[u] * l2;
-              acc1[2][r] = acc1[2][r] + b[u] * h1;
-              acc2[2][r] = acc2[2][r] + b[u] * h2;
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (t0 + r < N) {
-        float d1 = acc1[0][r];
-        float d2 = acc2[0][r];
+      e += cnt;
+      if (hdr & 1) {
+        float d1 = acc1[0];
+        float d2 = acc2[0];
         if constexpr (P == kHigh) {
-          d1 = (d1 + acc1[1][r]) + acc1[2][r];
-          d2 = (d2 + acc2[1][r]) + acc2[2][r];
+          d1 = (d1 + acc1[1]) + acc1[2];
+          d2 = (d2 + acc2[1]) + acc2[2];
         }
         nmch::fe_step(S, v, d1, d2, c);
+#pragma unroll
+        for (int q = 0; q < kTerms; ++q) acc1[q] = acc2[q] = 0.0f;
       }
     }
   }
@@ -179,9 +217,21 @@ __global__ void __launch_bounds__(kPathThreads)
 template <int P>
 cudaError_t launch(const nmch::FeParams& p, const float* z1, const float* z2,
                    const float* a_hi, const float* a_lo, int N, int64_t M,
-                   int64_t n, dim3 grid, double* partials, cudaStream_t st) {
-  qmc_fused_paths<P><<<grid, kPathThreads, 0, st>>>(p, z1, z2, a_hi, a_lo, N,
-                                                    M, n, partials);
+                   int64_t n, const int* segs, int n_segs, const int* cols,
+                   const int* pieces, const int* entries, int slab_cols,
+                   int seg_entries, dim3 grid, double* partials,
+                   cudaStream_t st) {
+  const size_t smem = sizeof(uint2) * kPathThreads * slab_cols +
+                      sizeof(EntryT<P>) * seg_entries;
+  // the default allows 48 KB of static and dynamic shared memory together
+  const cudaError_t err = cudaFuncSetAttribute(
+      qmc_fused_paths<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  qmc_fused_paths<P><<<grid, kPathThreads, smem, st>>>(
+      p, z1, z2, a_hi, a_lo, N, M, n, reinterpret_cast<const int4*>(segs),
+      n_segs, cols, pieces, reinterpret_cast<const int4*>(entries), slab_cols,
+      partials);
   return cudaGetLastError();
 }
 
@@ -193,9 +243,15 @@ cudaError_t launch(const nmch::FeParams& p, const float* z1, const float* z2,
 // (N, N) row-major on the device, the bridge matrix's operands (precision
 // 0 = HIGHEST: a_hi = sqrt(dt) A, a_lo unused; 1 = HIGH: its bf16 hi and
 // lo parts; 2 = DEFAULT: its bf16 hi part, a_lo unused). partials:
-// float64[2 * n_shifts * n / 128] scratch on the device. Launches on
-// `stream` and does not synchronise. Returns the cudaError_t of the
-// launches (0 on success); nothing is launched for invalid arguments.
+// float64[2 * n_shifts * n / 128] scratch on the device. The plan of A's
+// non-zeros (ops/qmc_fused_cuda.py::fused_plan), int32 on the device:
+// segs (n_segs, 4) = (first column, columns, entries, end of its pieces),
+// cols (the segments' columns), pieces (n_entries << 1 | ends_row, one a
+// row or piece of a row, in row order), entries (., 4) = (slot, row,
+// column, 0) in row order, columns ascending; slab_cols and seg_entries:
+// the most columns and entries of a segment. Launches on `stream` and does
+// not synchronise. Returns the cudaError_t of the launches (0 on success);
+// nothing is launched for invalid arguments.
 extern "C" int nmch_qmc_fused_sums(float T, float S_0, float v_0, float r,
                                    float k, float rho, float theta,
                                    float sigma, const float* z1,
@@ -203,11 +259,19 @@ extern "C" int nmch_qmc_fused_sums(float T, float S_0, float v_0, float r,
                                    const float* a_lo, int64_t N, int64_t M,
                                    int64_t n_shifts, int precision,
                                    double* partials, double* out,
-                                   void* stream) {
+                                   const int* segs, int64_t n_segs,
+                                   const int* cols, const int* pieces,
+                                   const int* entries, int slab_cols,
+                                   int seg_entries, void* stream) {
   if (N < 1 || N > (int64_t(1) << 30) || n_shifts < 1 ||
       n_shifts > kMaxShifts || M < n_shifts || M % n_shifts != 0 ||
       (M / n_shifts) % kPathThreads != 0 ||
       (precision == kHigh && a_lo == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (segs == nullptr || pieces == nullptr || n_segs < 1 ||
+      n_segs > 0x7FFFFFFF || slab_cols < 0 || slab_cols > kSlabCols ||
+      seg_entries < 0 || seg_entries > kMaxSegEntries) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t n = M / n_shifts;
@@ -219,16 +283,19 @@ extern "C" int nmch_qmc_fused_sums(float T, float S_0, float v_0, float r,
   cudaError_t err;
   switch (precision) {
     case kHighest:
-      err = launch<kHighest>(p, z1, z2, a_hi, a_lo, (int)N, M, n, grid,
-                             partials, st);
+      err = launch<kHighest>(p, z1, z2, a_hi, a_lo, (int)N, M, n, segs,
+                             (int)n_segs, cols, pieces, entries, slab_cols,
+                             seg_entries, grid, partials, st);
       break;
     case kHigh:
-      err = launch<kHigh>(p, z1, z2, a_hi, a_lo, (int)N, M, n, grid,
-                          partials, st);
+      err = launch<kHigh>(p, z1, z2, a_hi, a_lo, (int)N, M, n, segs,
+                          (int)n_segs, cols, pieces, entries, slab_cols,
+                          seg_entries, grid, partials, st);
       break;
     case kDefault:
-      err = launch<kDefault>(p, z1, z2, a_hi, a_lo, (int)N, M, n, grid,
-                             partials, st);
+      err = launch<kDefault>(p, z1, z2, a_hi, a_lo, (int)N, M, n, segs,
+                             (int)n_segs, cols, pieces, entries, slab_cols,
+                             seg_entries, grid, partials, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

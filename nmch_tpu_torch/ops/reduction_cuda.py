@@ -4,8 +4,9 @@
 The counterpart of ``benchmarks/reduction_bench.py::pallas_sum`` (kernel
 K7): the float32 sum of a (rows, 128) array as per-tile tree sums and a
 Kahan sum across the tiles.  On a CUDA tensor the wrapper launches the
-kernel (one block per (512, 128) tile, then one thread that adds the tile
-sums in order) or raises; on a CPU tensor it runs the plain version,
+kernel (one memset of the tiles' ready slots, then one launch: a block
+per (512, 128) tile, while one block adds the finished tile sums in tile
+order) or raises; on a CPU tensor it runs the plain version,
 ``ops/reduction.py::red_sum_plain``, whose order is the kernel's.
 """
 
@@ -31,10 +32,10 @@ def red_sum_cuda(x: torch.Tensor) -> torch.Tensor:
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned (the kernel loads "
                          "float4s)")
-    partials = torch.empty(n_tiles, dtype=torch.float32, device=x.device)
+    slots = torch.empty(n_tiles, dtype=torch.int64, device=x.device)
     out = torch.empty((), dtype=torch.float32, device=x.device)
     call_kernel("nmch_red_sum", "red_sum", x.device, x.data_ptr(), n_tiles,
-                partials.data_ptr(), out.data_ptr())
+                slots.data_ptr(), out.data_ptr())
     count_launch(red_sum_cuda, "red_sum")
     return out
 

@@ -287,22 +287,65 @@ def test_qmc_engine_prices_within_oracle_bar(dev):
     assert abs(res.price - heston_call_undiscounted(m.params)) <= bar
 
 
-@pytest.mark.parametrize("tiles", [4, 7])
-def test_reduction_kernel_is_bitwise_plain(dev, tiles):
-    """K7 (csrc/reduction.cu): the tile order is the plain version's, so the
-    f32 sum is bitwise equal on random data; the counter rises."""
+@pytest.mark.parametrize("data", ["random", "cancelling"])
+@pytest.mark.parametrize("tiles", [1, 4, 7, 1562, 15625])
+def test_reduction_kernel_is_bitwise_plain(dev, tiles, data):
+    """K7 (csrc/reduction.cu): the tile order and the chain's order are the
+    plain version's, so the f32 sum is bitwise equal on random data and
+    on data with +-1e6 on alternate elements, in three back-to-back calls
+    (each zeroes its own ready slots); the counter rises."""
     from nmch_tpu_torch.ops.reduction import red_sum_plain
     from nmch_tpu_torch.ops.reduction_cuda import red_sum_cuda
     g = torch.Generator(device=dev)
     g.manual_seed(tiles)
     x = torch.rand((tiles * 512, 128), generator=g, device=dev)
+    if data == "cancelling":
+        x[:, 0::2] += 1e6
+        x[:, 1::2] -= 1e6
     before = red_sum_cuda.launches
-    k = red_sum_cuda(x)
-    assert red_sum_cuda.launches == before + 1
-    assert torch.equal(k, red_sum_plain(x))
-    assert torch.equal(k, red_sum_cuda(x))
+    ks = [red_sum_cuda(x) for _ in range(3)]
+    assert red_sum_cuda.launches == before + 3
+    p = red_sum_plain(x)
+    assert all(torch.equal(k, p) for k in ks)
     half = torch.full((tiles * 512, 128), 0.5, device=dev)
     assert red_sum_cuda(half).item() == tiles * 512 * 64
+
+
+def test_reduction_kernel_is_one_launch(dev):
+    """K7 runs the tile pass and the Kahan chain in one kernel: the
+    profiler sees one kernel a call, after the memset of its slots."""
+    from torch.profiler import ProfilerActivity, profile
+    from nmch_tpu_torch.ops.reduction_cuda import red_sum_cuda
+    x = torch.rand((64 * 512, 128), device=dev)
+    red_sum_cuda(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        red_sum_cuda(x)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [op for op in ops if "memset" not in op.lower()]
+    assert len(ops) == 2 and len(kernels) == 1, ops
+    assert "red_sum_kernel" in kernels[0], ops
+
+
+def test_reduction_kernel_on_two_streams(dev):
+    """Each call zeroes its own slots on its stream: bitwise the plain sum
+    on the current stream and on a second one, after a larger array."""
+    from nmch_tpu_torch.ops.reduction import red_sum_plain
+    from nmch_tpu_torch.ops.reduction_cuda import red_sum_cuda
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    small = torch.rand((3 * 512, 128), generator=g, device=dev)
+    big = torch.rand((9 * 512, 128), generator=g, device=dev)
+    want = {id(x): red_sum_plain(x) for x in (small, big)}
+    side = torch.cuda.Stream(dev)
+    for x in (small, big, small):
+        assert torch.equal(red_sum_cuda(x), want[id(x)])
+        with torch.cuda.stream(side):
+            got = red_sum_cuda(x)
+        side.synchronize()
+        assert torch.equal(got, want[id(x)])
 
 
 @pytest.mark.parametrize("dtype,rows", [(torch.float32, 128),
@@ -331,11 +374,14 @@ def test_chain_kernel_matches_plain(dev, dtype, rows, with_sqrt, rsqrt):
 
 
 @pytest.mark.parametrize("precision", ["HIGHEST", "HIGH", "DEFAULT"])
-@pytest.mark.parametrize("N", [16, 101])
-def test_fused_qmc_kernel_matches_plain(dev, precision, N):
-    """K9/K10 (csrc/qmc_fused.cu) on the card's normals: per-replicate sums
-    at rel 1e-6 of the plain version's (float64 sums in another order),
-    bitwise repeats, the precision's counter rising."""
+@pytest.mark.parametrize("N,matrix", [(16, "bridge"), (101, "bridge"),
+                                      (101, "dense")])
+def test_fused_qmc_kernel_matches_plain(dev, precision, N, matrix):
+    """K9/K10 (csrc/qmc_fused.cu, the sparse bridge walk) on the card's
+    normals, on the bridge matrix and on a dense random A (whose rows the
+    plan cuts into pieces): per-replicate sums at rel 1e-6 of the plain
+    version's (float64 sums in another order), bitwise repeats, the
+    precision's counter rising."""
     import numpy as np
     from nmch_tpu_torch.ops import fe_qmc
     from nmch_tpu_torch.ops.qmc_fused_cuda import KERNEL_NAMES, \
@@ -343,8 +389,12 @@ def test_fused_qmc_kernel_matches_plain(dev, precision, N):
     pv = HestonParams().as_tensor("cpu")
     z1, z2 = fe_qmc.qmc_normals_mxu(N, 2048, 1, 1234, 0, n_shifts=8,
                                     device=dev)
+    if matrix == "bridge":
+        A = fe_qmc.bb_increment_matrix(N)
+    else:
+        A = np.random.default_rng(N).standard_normal((N, N)) / np.sqrt(N)
     A = torch.from_numpy(np.sqrt(1.0 / N).astype(np.float32)
-                         * fe_qmc.bb_increment_matrix(N)).to(dev)
+                         * A.astype(np.float32)).to(dev)
     name = KERNEL_NAMES[precision]
     before = qmc_payoff_sums_fused_cuda.variant_launches.get(name, 0)
     k = torch.stack(qmc_payoff_sums_fused_cuda(pv, z1, z2, A, 8,

@@ -12,6 +12,7 @@ path."""
 import importlib.util
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 
@@ -100,6 +101,25 @@ def test_red_sum_plain_matches_k7_in_interpret_mode(tiles):
     assert abs(got - x.astype(np.float64).sum()) <= 1e-6 * abs(want)
 
 
+def test_red_sum_plain_matches_k7_on_cancelling_tiles():
+    """Tile sums alternating near +1e6 and -1e6 (every element of tile t
+    is (-1)^t 1e6 / 65536 plus a small multiple of 1/16, so each tile sum
+    is exact in any order), which the Kahan chain across the tiles must
+    add with the compensation: rel 1e-6 of K7 in interpret mode and of
+    the float64 sum."""
+    tiles = 6
+    small = np.random.default_rng(3).integers(-8, 8, (tiles, TILE * 128))
+    sign = np.where(np.arange(tiles) % 2, -1.0, 1.0)[:, None]
+    x = (sign * (1e6 / 65536) + small / 16).astype(np.float32) \
+        .reshape(tiles * TILE, 128)
+    got = float(red_sum_plain(torch.from_numpy(x)))
+    want = float(tpu_sum(x))
+    exact = x.astype(np.float64).sum()
+    assert abs(exact) > 1e3
+    assert abs(got - want) <= 1e-6 * abs(want)
+    assert abs(got - exact) <= 1e-6 * abs(exact)
+
+
 def test_tile_sums_take_every_element_once():
     """Small integers sum exactly in any order: each tile sum is the
     exact one, so the kernel's order covers each element once."""
@@ -135,13 +155,16 @@ def test_red_sum_cuda_refuses_bad_input(x, msg):
 
 
 def test_reduction_bench_plain_path_sums_to_n_over_2():
-    """The probe's measure on the CPU at two tiles: both routes, sum n/2."""
+    """The probe's measure on the CPU at two tiles: both routes, sum n/2,
+    each timed in its turns and given their median."""
     recs = reduction_bench.measure(2 * TILE * 128, torch.device("cpu"),
                                    reps=1)
     assert [r["name"] for r in recs] == ["cuda+kahan", "torch.sum"]
     for r in recs:
         assert r["n"] == 2 * TILE * 128 and r["sum"] == r["n"] / 2
         assert r["ms"] > 0 and r["gbytes_per_s"] > 0
+        assert len(r["ms_turns"]) == 2 * reduction_bench.TURNS
+        assert r["ms"] == statistics.median(r["ms_turns"])
 
 
 def test_timed_blocked_warms_up_then_times_the_queued_runs():
