@@ -114,12 +114,16 @@ def load_library() -> tuple[ctypes.CDLL, BuildInfo]:
         + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p] * 5)
     lib.nmch_em_moments.restype = ctypes.c_int
+    lib.nmch_em_schedule.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_void_p]
+    lib.nmch_em_schedule.restype = ctypes.c_int
     sweep_head = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_uint32] * 3 \
         + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
     lib.nmch_fe_sweep_moments.argtypes = sweep_head + [ctypes.c_void_p] * 3
     lib.nmch_fe_sweep_moments.restype = ctypes.c_int
-    lib.nmch_em_sweep_moments.argtypes = (sweep_head + [ctypes.c_int]
-                                          + [ctypes.c_void_p] * 5)
+    lib.nmch_em_sweep_moments.argtypes = (
+        sweep_head[:1] + [ctypes.c_void_p] + sweep_head[1:] + [ctypes.c_int]
+        + [ctypes.c_void_p] * 5)
     lib.nmch_em_sweep_moments.restype = ctypes.c_int
     lib.nmch_fe_stateful_moments.argtypes = (
         [ctypes.c_float] * 8 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]

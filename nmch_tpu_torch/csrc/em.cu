@@ -10,18 +10,23 @@
 // kernels); poisson_cut, the parameters, the keys, the epoch and base_path
 // are runtime arguments, so a sweep never rebuilds.
 //
-// What bounds it on an H100: instruction issue, under divergence. A step
-// costs a Poisson draw (one round on the normal branch above the cut, a
-// geometric number of PTRS rounds below it, Knuth rounds below lam = 10)
-// and one or more Marsaglia-Tsang rounds; each round is a Philox (10 rounds,
-// 4 integer multiplies each) or Threefry (12 rounds of add/rotate/xor) block,
-// a Box-Muller normal with a logf, and the acceptance test's logf/log1pf.
-// Lanes of a warp that accept in different rounds wait for the slowest, so
-// a warp runs the maximum of its 32 lanes' round counts. The design keeps a
-// path's whole state (v, vI, counter, constants) in registers, touches
-// memory only to write the payoff (and, on request, the per-path payoff and
-// counter for checks), and leaves divergence as it is: reducing it (e.g.
-// regrouping lanes by round count) is work for a later change.
+// What bounds it on an H100: instruction issue. A step costs a Poisson
+// draw (one round on the normal branch above the cut, a geometric number of
+// PTRS rounds below it, Knuth rounds below lam = 10) and one or more
+// Marsaglia-Tsang rounds; each round is a Philox (10 rounds, 4 integer
+// multiplies each) or Threefry (12 rounds of add/rotate/xor) block, a
+// Box-Muller normal with a logf, and the acceptance test's logf/log1pf.
+// A path's whole state (v, vI, counter, constants) stays in registers; the
+// kernel touches memory only to write the payoff (and, on request, the
+// per-path payoff and counter for checks). Where lanes of a warp leave the
+// normal branch, the step loops wait for each sampler's slowest lane, once
+// per Poisson regime present: em_path.cuh then runs the path on its round
+// schedule (the phase with more lanes draws, each lane in its own stage
+// and round), chosen per launch from the constants. What is left is the
+// round loop's own cost (votes, stage tests, state carried across
+// iterations: ~15% over the step loops at an equal schedule), the MT
+// squeeze's two-logf fallback, which some lane of a warp needs in most MT
+// rounds, and the lanes that wait for their phase.
 //
 // Numerics: see em_path.cuh. Built with -fmad=false, a path's counter and
 // payoff equal the plain PyTorch version's (ops/em.py) on the card; the
@@ -38,14 +43,18 @@ namespace {
 using nmch::EmArgs;
 using nmch::kPathThreads;
 
-template <int R, bool kConditional>
+// kRounds: the round schedule, else the step loops (em_path.cuh); a kernel
+// holds one of them, so that the step loops keep their own register count.
+template <int R, bool kConditional, bool kRounds>
 __global__ void __launch_bounds__(kPathThreads)
     em_paths(EmArgs a, double* __restrict__ partials,
              float* __restrict__ payoff_out, uint32_t* __restrict__ ctr_out) {
   const uint32_t idx = blockIdx.x * kPathThreads + threadIdx.x;
+  const uint32_t path = a.base_path + idx;
   uint32_t ctr;
   const float payoff =
-      nmch::em_path<R, kConditional>(a, a.base_path + idx, ctr);
+      kRounds ? nmch::em_path_rounds<R, kConditional>(a, path, ctr)
+              : nmch::em_path_steps<R, kConditional>(a, path, ctr);
   if (payoff_out != nullptr) {
     payoff_out[idx] = payoff;
     ctr_out[idx] = ctr;
@@ -57,8 +66,14 @@ template <int R, bool kConditional>
 cudaError_t launch_em_paths(const EmArgs& a, int64_t n_blocks,
                             double* partials, float* payoff_out,
                             uint32_t* ctr_out, cudaStream_t st) {
-  em_paths<R, kConditional><<<(unsigned)n_blocks, kPathThreads, 0, st>>>(
-      a, partials, payoff_out, ctr_out);
+  const unsigned g = (unsigned)n_blocks;
+  if (nmch::em_rounds_pay(a)) {
+    em_paths<R, kConditional, true><<<g, kPathThreads, 0, st>>>(
+        a, partials, payoff_out, ctr_out);
+  } else {
+    em_paths<R, kConditional, false><<<g, kPathThreads, 0, st>>>(
+        a, partials, payoff_out, ctr_out);
+  }
   return cudaGetLastError();
 }
 
@@ -103,4 +118,27 @@ extern "C" int nmch_em_moments(const float* consts, uint32_t k0, uint32_t k1,
                                                     payoff_out, ctr_out, st);
   if (err != cudaSuccess) return (int)err;
   return (int)nmch::launch_sum_partials(partials, n_blocks, n_paths, out, st);
+}
+
+// The schedule em_path.cuh runs for each of n_points rows of loop constants
+// (host memory, float32[n_points * 13], row p = the 13 constants of
+// ops/em.py::em_consts_table) at N steps: out[p] = 1 for the round
+// schedule, 0 for the step loops (em_rounds_pay, the decision
+// nmch_em_moments takes for its own constants). K4's wrapper puts these in
+// its dispatch table. Returns 0, or cudaErrorInvalidValue for invalid
+// arguments.
+extern "C" int nmch_em_schedule(const float* consts, int64_t n_points,
+                                int64_t N, int32_t* out) {
+  if (consts == nullptr || out == nullptr || n_points < 0 || N < 1 ||
+      N > (int64_t(1) << 30)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int64_t p = 0; p < n_points; ++p) {
+    const float* c = consts + nmch::kEmConsts * p;
+    const EmArgs a{c[0], c[1], c[2], c[3],  c[4],  c[5],  c[6],
+                   c[7], c[8], c[9], c[10], c[11], c[12],
+                   0u,   0u,   0u,   0u,    (int)N};
+    out[p] = nmch::em_rounds_pay(a) ? 1 : 0;
+  }
+  return 0;
 }

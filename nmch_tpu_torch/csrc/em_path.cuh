@@ -1,19 +1,52 @@
-// One Broadie-Kaya exact-scheme path per thread: the device half of em.cu.
+// One Broadie-Kaya exact-scheme path per thread: the device half of em.cu
+// (K2) and sweep.cu (K4).
 //
 // Operation for operation the plain PyTorch version (nmch_tpu_torch/ops/
 // em.py and ops/sampling.py), itself the counter-rng half of nmch_tpu/ops/
-// em.py and ops/sampling.py. The JAX package runs the Poisson and Gamma
-// rejection samplers as masked rounds over a tile of lanes; here each
-// thread loops over its own rounds, which gives the same draws: a lane draws
-// one 4-word block per round at its own counter, the counter advancing only
-// while the lane is active, under the same caps (Poisson 64 rounds, Gamma
-// 32) and the same straggler fallbacks. A thread computes only the Poisson
-// regime it takes (the JAX code computes all three and selects).
+// em.py and ops/sampling.py. A path's draws are 4-word blocks at its
+// counters 0, 1, 2, ...: in each step the Poisson sampler's rounds (Knuth
+// below lam = 10, the one-round normal approximation at and above the cut,
+// PTRS between), then the Marsaglia-Tsang (MT) Gamma rounds, and after the
+// last step the terminal normal (none with `conditional`); the caps
+// (Poisson 64 rounds, Gamma 32) and the straggler fallbacks are the plain
+// version's. A path's counter and payoff are a function of its own stream
+// alone, so two schedules of the same draws give the same bits:
 //
-// Numerics: every float operation is the plain version's, in its order
-// (built with -fmad=false, no --use_fast_math; IEEE sqrtf and division).
-// The transcendentals are libdevice's logf, expf, log1pf and rsqrtf, the
-// functions torch's CUDA ops call for float32 (nm_* here and in
+// - The step schedule (em_path_steps): a thread runs each sampler's own
+//   loop, and the warp runs a sampler's rounds until its slowest lane is
+//   done, once per Poisson regime its lanes are in, then the next step.
+//   Where every lane takes the one-round normal branch (the CLI's default,
+//   cut 128 at default parameters) a warp idles only on the rare second MT
+//   round, and these tight loops are the fastest code found.
+// - The round schedule (em_path_rounds): one loop in which a lane carries
+//   its stage (a Poisson sampler, MT or the terminal), round and the
+//   stage's constants in registers (EmLane), and each iteration the phase
+//   that holds more of the warp's lanes draws, one block for each of its
+//   lanes: the Gamma phase (an MT round) or the step phase (a Poisson round
+//   of any regime, or the terminal draw). A lane that ends a stage runs the
+//   next stage's set-up in the same iteration and draws again when its
+//   phase is next chosen. So a lane that needs another PTRS, Knuth or MT
+//   round no longer holds the warp's other lanes: they go on with their
+//   next step and meet it again in the same phase; and a warp of mixed
+//   Poisson regimes runs the phase's samplers side by side. The counter
+//   block runs once per iteration for the warp (it sits outside the
+//   phase's stage branches), and the Box-Muller normal's logf shares one
+//   call with PTRS's acceptance logf (a selected argument: the same
+//   libdevice function on the same float gives the same bits).
+//
+// The schedule is picked per point, on the host, from the share of steps
+// that leave the normal branch (em_rounds_pay, the one place that decides):
+// em.cu launches K2 built for that schedule alone, and K4 reads each
+// point's decision from its dispatch table (nmch_em_schedule). On
+// an H100 the round loop costs ~15% more than the step loops at an equal
+// schedule (votes, stage tests, state kept across iterations); it took
+// 0.77-0.95x their time where over ~7% of steps leave the normal branch
+// and 1.07-1.21x below that (K2 on each of explore's points).
+//
+// Numerics: every float operation of a lane is the plain version's, in its
+// order (built with -fmad=false, no --use_fast_math; IEEE sqrtf and
+// division). The transcendentals are libdevice's logf, expf, log1pf and
+// rsqrtf, the functions torch's CUDA ops call for float32 (nm_* here and in
 // fe_path.cuh), so that a path's counter and payoff equal the plain
 // version's on the card.
 
@@ -79,15 +112,17 @@ constexpr float kSigFloor = 1e-12f;
 
 __device__ __forceinline__ float nm_log1p(float x) { return log1pf(x); }
 
-// The block of 4 words at counter `ctr` of path `path`'s stream.
+// The block of 4 words at counter `ctr` of path `path`'s stream; advances
+// ctr.
 template <int R>
-__device__ __forceinline__ void draw4(uint32_t ctr, const EmArgs& a,
+__device__ __forceinline__ void draw4(uint32_t& ctr, const EmArgs& a,
                                       uint32_t path, uint32_t w[4]) {
   w[0] = ctr;
   w[1] = a.epoch;
   w[2] = path;
   w[3] = 0u;
   counter_block<R>(w[0], w[1], w[2], w[3], a.k0, a.k1);
+  ++ctr;
 }
 
 __device__ __forceinline__ float cos_2pi(float u) {
@@ -96,11 +131,10 @@ __device__ __forceinline__ float cos_2pi(float u) {
   return c;
 }
 
-// First output of rng/normal.py::boxmuller(uniform_open01(w0),
-// uniform_open01(w1)): sqrt(-2 ln u1) cos(2 pi u2)
-__device__ __forceinline__ float normal_bm(uint32_t w0, uint32_t w1) {
-  const float r = sqrtf(-2.0f * nm_log(uniform_open01(w0)));
-  return r * cos_2pi(uniform_open01(w1));
+// rng/normal.py::boxmuller's first output from the log of its first
+// uniform: sqrt(-2 ln u1) cos(2 pi u2)
+__device__ __forceinline__ float normal_from_log(float log_u1, uint32_t w1) {
+  return sqrtf(-2.0f * log_u1) * cos_2pi(uniform_open01(w1));
 }
 
 __device__ __forceinline__ float stirling_corr(float zz) {
@@ -121,6 +155,47 @@ __device__ __forceinline__ float ptrs_log_accept_rhs(float kf, float lam,
          kHalfLn2Pi - stirling_corr(w) + logm;
 }
 
+// ops/em.py::norm_cdf_vec
+__device__ __forceinline__ float norm_cdf(float x) {
+  const float ax = fabsf(x);
+  const float t = 1.0f / (1.0f + kAsP * ax);
+  float poly = kAsB4 * t + kAsB3;
+  poly = poly * t + kAsB2;
+  poly = poly * t + kAsB1;
+  poly = poly * t + kAsB0;
+  poly = poly * t;
+  const float phi = kInvSqrt2Pi * nm_exp(-0.5f * ax * ax);
+  const float nd = 1.0f - phi * poly;
+  return x >= 0.0f ? nd : 1.0f - nd;
+}
+
+// ln S_T ~ N(m, sig_eff^2) given the variance path: v_T and the running sum
+// of (v_t + v_{t+dt}) (ops/em.py::path_law_from_consts's tail)
+__device__ __forceinline__ void path_law(const EmArgs& a, float Vt,
+                                         float vI_sum, float& m,
+                                         float& sig_eff) {
+  const float vI = vI_sum * a.half_dt;
+  m = a.m0 - 0.5f * vI + a.rho_s * (Vt - a.v_0 - a.ktT + a.k * vI);
+  sig_eff = sqrtf(a.one_m_rho2 * vI);
+}
+
+// E[(S_T - K)^+ | variance path], K = S_0 (em_conditional_payoff)
+__device__ __forceinline__ float conditional_payoff(const EmArgs& a, float m,
+                                                    float sig_eff) {
+  const float s = fmaxf(sig_eff, kSigFloor);
+  const float dd = (a.log_S0 - m) / s;
+  return nm_exp(m + 0.5f * s * s) * norm_cdf(s - dd) -
+         a.S_0 * norm_cdf(-dd);
+}
+
+// (S_T - K)^+ with the terminal normal g
+__device__ __forceinline__ float terminal_payoff(const EmArgs& a, float m,
+                                                 float sig_eff, float g) {
+  return fmaxf(nm_exp(m + sig_eff * g) - a.S_0, 0.0f);
+}
+
+// ---- The step schedule ----------------------------------------------------
+
 // N_p ~ Poisson(lam) (ops/sampling.py::poisson_from_stream); advances ctr.
 template <int R>
 __device__ float poisson(float lam, uint32_t& ctr, const EmArgs& a,
@@ -132,7 +207,6 @@ __device__ float poisson(float lam, uint32_t& ctr, const EmArgs& a,
     float t = 1.0f, cnt = 0.0f;
     for (int rnd = 0; rnd < kPoissonMaxRounds; ++rnd) {
       draw4<R>(ctr, a, path, w);
-      ++ctr;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (t >= target) {
@@ -148,8 +222,7 @@ __device__ float poisson(float lam, uint32_t& ctr, const EmArgs& a,
   if (lam >= a.poisson_cut) {
     // continuity-corrected normal approximation: one round, always done
     draw4<R>(ctr, a, path, w);
-    ++ctr;
-    const float g = normal_bm(w[0], w[1]);
+    const float g = normal_from_log(nm_log(uniform_open01(w[0])), w[1]);
     return fmaxf(floorf(lam + sqrt_lam * g + 0.5f), 0.0f);
   }
   // PTRS: transformed rejection with squeeze
@@ -161,7 +234,6 @@ __device__ float poisson(float lam, uint32_t& ctr, const EmArgs& a,
   const float loglam = nm_log(lam);
   for (int rnd = 0; rnd < kPoissonMaxRounds; ++rnd) {
     draw4<R>(ctr, a, path, w);
-    ++ctr;
     const float U = uniform_halfopen01(w[0]) - 0.5f;
     const float V = uniform_halfopen01(w[1]);
     const float us = 0.5f - fabsf(U);
@@ -191,8 +263,7 @@ __device__ float gamma_ms(float alpha0, uint32_t& ctr, const EmArgs& a,
   uint32_t w[4];
   for (int rnd = 0; rnd < kGammaMaxRounds; ++rnd) {
     draw4<R>(ctr, a, path, w);
-    ++ctr;
-    const float x = normal_bm(w[0], w[1]);
+    const float x = normal_from_log(nm_log(uniform_open01(w[0])), w[1]);
     const float v1 = 1.0f + cmul * x;
     const float v = v1 * v1 * v1;
     const float u = uniform_open01(w[2]);
@@ -213,23 +284,8 @@ __device__ float gamma_ms(float alpha0, uint32_t& ctr, const EmArgs& a,
   return alpha * C;
 }
 
-// ops/em.py::norm_cdf_vec
-__device__ __forceinline__ float norm_cdf(float x) {
-  const float ax = fabsf(x);
-  const float t = 1.0f / (1.0f + kAsP * ax);
-  float poly = kAsB4 * t + kAsB3;
-  poly = poly * t + kAsB2;
-  poly = poly * t + kAsB1;
-  poly = poly * t + kAsB0;
-  poly = poly * t;
-  const float phi = kInvSqrt2Pi * nm_exp(-0.5f * ax * ax);
-  const float nd = 1.0f - phi * poly;
-  return x >= 0.0f ? nd : 1.0f - nd;
-}
-
-// One path: its payoff (ops/em.py::em_payoffs) and its final counter.
 template <int R, bool kConditional>
-__device__ float em_path(const EmArgs& a, uint32_t path, uint32_t& ctr) {
+__device__ float em_path_steps(const EmArgs& a, uint32_t path, uint32_t& ctr) {
   float Vt = a.v_0;
   float vI = 0.0f;
   ctr = 0u;
@@ -241,23 +297,248 @@ __device__ float em_path(const EmArgs& a, uint32_t path, uint32_t& ctr) {
     vI = vI + (Vt + v_next);  // dt/2 applied once after the loop
     Vt = v_next;
   }
-  vI = vI * a.half_dt;
-  const float m =
-      a.m0 - 0.5f * vI + a.rho_s * (Vt - a.v_0 - a.ktT + a.k * vI);
-  const float sig_eff = sqrtf(a.one_m_rho2 * vI);
-  if (kConditional) {
-    // E[(S_T - K)^+ | variance path], K = S_0 (em_conditional_payoff)
-    const float s = fmaxf(sig_eff, kSigFloor);
-    const float dd = (a.log_S0 - m) / s;
-    return nm_exp(m + 0.5f * s * s) * norm_cdf(s - dd) -
-           a.S_0 * norm_cdf(-dd);
-  }
+  float m, sig_eff;
+  path_law(a, Vt, vI, m, sig_eff);
+  if (kConditional) return conditional_payoff(a, m, sig_eff);
   // terminal draw: one more block
   uint32_t w[4];
   draw4<R>(ctr, a, path, w);
-  ++ctr;
-  const float g = normal_bm(w[0], w[1]);
-  return fmaxf(nm_exp(m + sig_eff * g) - a.S_0, 0.0f);
+  return terminal_payoff(a, m, sig_eff,
+                         normal_from_log(nm_log(uniform_open01(w[0])), w[1]));
+}
+
+// ---- The round schedule ---------------------------------------------------
+
+// A lane's stage: kStageGamma is the Gamma phase, the stages before it and
+// kStageTerminal the step phase.
+enum EmStage : int {
+  kStageKnuth = 0,     // Poisson(lam), lam < 10: Knuth's product
+  kStagePtrs = 1,      // Poisson(lam) below the cut: a PTRS round
+  kStageNormal = 2,    // Poisson(lam) at and above the cut: one round
+  kStageGamma = 3,     // Gamma(alpha0): an MT round
+  kStageTerminal = 4,  // the terminal normal
+  kStageDone = 5,
+};
+
+// A path's state between iterations. The stage's constants share six
+// slots q0..q5:
+//   Knuth     q0 lam, q1 target = e^-lam, q2 the product t, q3 its count
+//   PTRS      q0 lam, q1 b, q2 a, q3 1/alpha, q4 v_r, q5 ln lam
+//   normal    q0 lam, q1 sqrt(lam)
+//   Gamma     q0 alpha0, q1 d, q2 1/sqrt(9 d), q3 the boost factor C
+//   terminal  q0 m, q1 sig_eff
+struct EmLane {
+  float Vt, vI;  // v_t and the running sum of (v_t + v_{t+dt})
+  float q0, q1, q2, q3, q4, q5;
+  uint32_t ctr;  // the next block's counter
+  int i;         // the step
+  int stage, rnd;
+};
+
+// Enter step s.i: lam, its Poisson regime and the regime's constants, as
+// poisson() sets them up; after the last step, the terminal stage, or with
+// kConditional the payoff.
+template <bool kConditional>
+__device__ __forceinline__ void begin_step(EmLane& s, const EmArgs& a,
+                                           float& payoff) {
+  s.rnd = 0;
+  if (s.i < a.N) {
+    const float lam = a.lam_const * s.Vt;
+    s.q0 = lam;
+    if (lam < kPoissonSmall) {
+      s.stage = kStageKnuth;
+      s.q1 = nm_exp(-lam);
+      s.q2 = 1.0f;
+      s.q3 = 0.0f;
+      return;
+    }
+    const float sqrt_lam = sqrtf(lam);
+    if (lam >= a.poisson_cut) {
+      s.stage = kStageNormal;
+      s.q1 = sqrt_lam;
+      return;
+    }
+    s.stage = kStagePtrs;
+    const float b = kPtrsB0 + kPtrsB1 * sqrt_lam;
+    s.q1 = b;
+    s.q2 = kPtrsA0 + kPtrsA1 * b;
+    s.q3 = kPtrsInvAlpha0 + kPtrsInvAlpha1 / (b - kPtrsInvAlpha2);
+    s.q4 = kPtrsVr0 - kPtrsVr1 / (b - 2.0f);
+    s.q5 = nm_log(lam);
+    return;
+  }
+  float m, sig_eff;
+  path_law(a, s.Vt, s.vI, m, sig_eff);
+  if (kConditional) {
+    payoff = conditional_payoff(a, m, sig_eff);
+    s.stage = kStageDone;
+  } else {
+    s.stage = kStageTerminal;
+    s.q0 = m;
+    s.q1 = sig_eff;
+  }
+}
+
+template <int R, bool kConditional>
+__device__ float em_path_rounds(const EmArgs& a, uint32_t path,
+                               uint32_t& ctr) {
+  constexpr unsigned kWarpAll = 0xFFFFFFFFu;
+  EmLane s;
+  s.Vt = a.v_0;
+  s.vI = 0.0f;
+  s.ctr = 0u;
+  s.i = 0;
+  float payoff = 0.0f;
+  begin_step<kConditional>(s, a, payoff);
+  for (;;) {
+    // the phase with more lanes draws; ties go to the step phase
+    const bool active = s.stage != kStageDone;
+    const bool gamma = s.stage == kStageGamma;
+    const unsigned in_gamma = __ballot_sync(kWarpAll, gamma);
+    const unsigned in_step = __ballot_sync(kWarpAll, active && !gamma);
+    if ((in_gamma | in_step) == 0u) break;
+    uint32_t w[4];
+    if (__popc(in_gamma) > __popc(in_step)) {
+      // the Gamma phase: an MT round
+      if (!gamma) continue;
+      draw4<R>(s.ctr, a, path, w);
+      const float x = normal_from_log(nm_log(uniform_open01(w[0])), w[1]);
+      const float v1 = 1.0f + s.q2 * x;
+      const float v = v1 * v1 * v1;
+      const float u = uniform_open01(w[2]);
+      const float x2 = x * x;
+      // boost factor U^(1/alpha0), drawn once, in the first round
+      if (s.rnd == 0 && s.q0 < 1.0f) {
+        s.q3 = nm_exp(nm_log(uniform_open01(w[3])) / s.q0);
+      }
+      bool ok = false;
+      if (v > 0.0f) {
+        ok = u < 1.0f - kMtSqueeze * x2 * x2;
+        if (!ok) {
+          const float logv = nm_log(fmaxf(v, kMtLogFloor));
+          ok = nm_log(u) < 0.5f * x2 + s.q1 * (1.0f - v + logv);
+        }
+      }
+      float gam;
+      if (ok) {
+        gam = s.q1 * v * s.q3;
+      } else if (++s.rnd == kGammaMaxRounds) {
+        gam = (s.q0 + (s.q0 < 1.0f ? 1.0f : 0.0f)) * s.q3;  // alpha * C
+      } else {
+        continue;
+      }
+      const float v_next = a.vfac * gam;
+      s.vI = s.vI + (s.Vt + v_next);  // dt/2 applied once after the loop
+      s.Vt = v_next;
+      ++s.i;
+      begin_step<kConditional>(s, a, payoff);
+      continue;
+    }
+    // the step phase: a Poisson round of the lane's regime, or the
+    // terminal draw
+    if (!active || gamma) continue;
+    draw4<R>(s.ctr, a, path, w);
+    // PTRS takes w0, w1 as half-open uniforms; its acceptance logf and the
+    // Box-Muller radius's logf are one call
+    float larg = uniform_open01(w[0]);
+    float V = 0.0f, us = 0.0f, kf = 0.0f;
+    if (s.stage == kStagePtrs) {
+      const float U = uniform_halfopen01(w[0]) - 0.5f;
+      V = uniform_halfopen01(w[1]);
+      us = 0.5f - fabsf(U);
+      kf = floorf((2.0f * s.q2 / us + s.q1) * U + s.q0 + kPtrsK);
+      larg = V * s.q3 / (s.q2 / (us * us) + s.q1);
+    }
+    const float lg = nm_log(larg);
+    float n_p;
+    if (s.stage == kStageKnuth) {
+      // 4 uniforms a round, multiplied in until t drops below e^-lam
+      float t = s.q2, cnt = s.q3;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (t >= s.q1) {
+          t = t * uniform_open01(w[j]);
+          cnt = cnt + 1.0f;
+        }
+      }
+      s.q2 = t;
+      s.q3 = cnt;
+      if (t < s.q1) {
+        n_p = fmaxf(cnt - 1.0f, 0.0f);
+      } else if (++s.rnd == kPoissonMaxRounds) {
+        n_p = floorf(s.q0 + 0.5f);
+      } else {
+        continue;
+      }
+    } else if (s.stage == kStagePtrs) {
+      // transformed rejection with squeeze; lg is the log of the ratio
+      bool ok = us >= kPtrsUsSqueeze && V <= s.q4;
+      if (!ok && !(kf < 0.0f || (us < kPtrsUsReject && V > us))) {
+        ok = lg <= ptrs_log_accept_rhs(kf, s.q0, s.q5);
+      }
+      if (ok) {
+        n_p = fmaxf(kf, 0.0f);
+      } else if (++s.rnd == kPoissonMaxRounds) {
+        n_p = floorf(s.q0 + 0.5f);
+      } else {
+        continue;
+      }
+    } else if (s.stage == kStageNormal) {
+      // continuity-corrected normal approximation: one round
+      n_p = fmaxf(floorf(s.q0 + s.q1 * normal_from_log(lg, w[1]) + 0.5f),
+                  0.0f);
+    } else {
+      payoff = terminal_payoff(a, s.q0, s.q1, normal_from_log(lg, w[1]));
+      s.stage = kStageDone;
+      continue;
+    }
+    // Gamma(d + N_p), as gamma_ms() sets it up
+    const float alpha0 = a.d + n_p;
+    const bool need_boost = alpha0 < 1.0f;
+    const float alpha = alpha0 + (need_boost ? 1.0f : 0.0f);
+    const float d = alpha - kThird;
+    s.q0 = alpha0;
+    s.q1 = d;
+    s.q2 = nm_rsqrt(9.0f * d);
+    s.q3 = 1.0f;
+    s.stage = kStageGamma;
+    s.rnd = 0;
+  }
+  ctr = s.ctr;
+  return payoff;
+}
+
+// ---- The choice -----------------------------------------------------------
+
+// Whether the round schedule pays for these constants: the share of steps
+// whose Poisson draw leaves the normal branch, estimated as P(v < cut /
+// lam_const) for v_{T/2} given v_0 under a Gamma law with the CIR process's
+// mean and variance, is at least 7%. (On an H100, K2 philox at 2^18 x 1000
+// over explore's 200 points and eight cuts at default parameters: the round
+// schedule took 0.77-0.95x the step schedule's time above ~7%, and
+// 1.07-1.21x below it. Not measured for threefry4, whose block costs more
+// instructions, so its break-even share may be lower.) Its series is that of the
+// regularized lower incomplete gamma function; where it would not converge
+// quickly (x >= the shape + 1), the share is above a half. Host code only:
+// one float32 evaluation (the host's expf, logf and lgammaf) decides for K2
+// and K4 alike.
+inline bool em_rounds_pay(const EmArgs& a) {
+  const float T = 2.0f * (float)a.N * a.half_dt;
+  const float theta = a.ktT / (a.k * T);
+  const float sig2 = 2.0f * a.k * a.vfac / (1.0f - a.lam_const * a.vfac);
+  const float e = expf(-0.5f * a.k * T);
+  const float mean = theta + (a.v_0 - theta) * e;
+  const float var =
+      sig2 * (1.0f - e) * (a.v_0 * e + 0.5f * theta * (1.0f - e)) / a.k;
+  const float shape = mean * mean / var;
+  const float x = a.poisson_cut / a.lam_const * mean / var;
+  if (!(x < shape + 1.0f)) return true;
+  float term = 1.0f / shape, sum = term;
+  for (int n = 1; n < 64 && term > 1e-7f * sum; ++n) {
+    term *= x / (shape + (float)n);
+    sum += term;
+  }
+  return sum * expf(shape * logf(x) - x - lgammaf(shape)) >= 0.07f;
 }
 
 }  // namespace

@@ -17,12 +17,19 @@
 // the 13 float32 loop constants of ops/em.py::em_consts_table. Then each
 // thread runs the shared device path (fe_path.cuh, em_path.cuh).
 //
-// What bounds it on an H100: instruction issue, as for fe.cu and em.cu; K4
-// also under divergence, and across points: the grid mixes points whose
-// Poisson draws take the one-round normal branch with points on PTRS or
-// Knuth and the alpha < 1 Gamma boost, and the launch lasts as long as its
-// slowest blocks. A simple kernel that is right comes first: nothing here
-// regroups lanes or points.
+// What bounds it on an H100: instruction issue, as for fe.cu and em.cu. A
+// block of K4 runs its point on the schedule that em_path.cuh::
+// em_rounds_pay picks on the host for the point's constants (em.cu's
+// nmch_em_schedule, passed in `order`): the step loops where nearly every
+// step takes the
+// one-round normal branch, the round schedule where lanes leave it (small
+// theta, or sigma^2 > 2 k theta, where the variance visits zero and the
+// alpha < 1 Gamma boost). The launch lasts as long as its slowest blocks,
+// and the sigma loop is outermost in grid order (explore.py::grid_points),
+// which would put the heaviest points last: the grid's y index maps to a
+// point through `order`, a permutation that the wrapper derives from the
+// constant table (ops/sweep_cuda.py::em_point_order), heaviest point
+// first, so that light points fill the launch's tail.
 //
 // Reduction: point p's blocks write their partials to row p (reduce.cuh),
 // and the second pass runs one 256-thread block per point in the order of
@@ -60,37 +67,43 @@ __global__ void __launch_bounds__(kPathThreads)
                               partials + 2 * (int64_t)gridDim.x * blockIdx.y);
 }
 
-// K4: one EM path of point blockIdx.y.
+// K4: one EM path of the point that order[blockIdx.y] names, on the
+// schedule it names (2 p + 1: point p on the round schedule, 2 p: on the
+// step loops).
 template <int R, bool kConditional>
 __global__ void __launch_bounds__(kPathThreads)
-    em_sweep_paths(const float* __restrict__ consts, uint32_t k0, uint32_t k1,
-                   uint32_t epoch0, int N, double* __restrict__ partials,
+    em_sweep_paths(const float* __restrict__ consts,
+                   const int32_t* __restrict__ order, uint32_t k0,
+                   uint32_t k1, uint32_t epoch0, int N,
+                   double* __restrict__ partials,
                    float* __restrict__ payoff_out,
                    uint32_t* __restrict__ ctr_out) {
-  const float* c = consts + nmch::kEmConsts * blockIdx.y;
+  const uint32_t e = (uint32_t)__ldg(order + blockIdx.y);
+  const uint32_t p = e >> 1;
+  const float* c = consts + nmch::kEmConsts * p;
   const EmArgs a{c[0], c[1], c[2], c[3],  c[4],  c[5],  c[6],
                  c[7], c[8], c[9], c[10], c[11], c[12],
-                 k0,   k1,   epoch0 + blockIdx.y, 0u, N};
+                 k0,   k1,   epoch0 + p, 0u, N};
   const uint32_t path = blockIdx.x * kPathThreads + threadIdx.x;
   uint32_t ctr;
-  const float payoff = nmch::em_path<R, kConditional>(a, path, ctr);
+  const float payoff =
+      (e & 1u) ? nmch::em_path_rounds<R, kConditional>(a, path, ctr)
+               : nmch::em_path_steps<R, kConditional>(a, path, ctr);
   if (payoff_out != nullptr) {
-    const int64_t o =
-        (int64_t)blockIdx.y * gridDim.x * kPathThreads + path;
+    const int64_t o = (int64_t)p * gridDim.x * kPathThreads + path;
     payoff_out[o] = payoff;
     ctr_out[o] = ctr;
   }
-  nmch::block_sum_to_partials(payoff,
-                              partials + 2 * (int64_t)gridDim.x * blockIdx.y);
+  nmch::block_sum_to_partials(payoff, partials + 2 * (int64_t)gridDim.x * p);
 }
 
 template <int R, bool kConditional>
-cudaError_t launch_em_sweep(const float* consts, uint32_t k0, uint32_t k1,
-                            uint32_t epoch0, int N, dim3 grid,
-                            double* partials, float* payoff_out,
+cudaError_t launch_em_sweep(const float* consts, const int32_t* order,
+                            uint32_t k0, uint32_t k1, uint32_t epoch0, int N,
+                            dim3 grid, double* partials, float* payoff_out,
                             uint32_t* ctr_out, cudaStream_t st) {
   em_sweep_paths<R, kConditional><<<grid, kPathThreads, 0, st>>>(
-      consts, k0, k1, epoch0, N, partials, payoff_out, ctr_out);
+      consts, order, k0, k1, epoch0, N, partials, payoff_out, ctr_out);
   return cudaGetLastError();
 }
 
@@ -150,18 +163,23 @@ extern "C" int nmch_fe_sweep_moments(const float* params, int64_t n_points,
 
 // K4: as K3 for the EM scheme. consts: float32[n_points * 13] on the
 // device, row p = the loop constants of point p (ops/em.py::
-// em_consts_table). conditional: 0 or 1. payoff_out (float32[n_points *
-// n_paths]) and ctr_out (uint32[n_points * n_paths]) are both null or both
-// device arrays that receive each path's payoff and final counter, point
-// major.
-extern "C" int nmch_em_sweep_moments(const float* consts, int64_t n_points,
+// em_consts_table). order: int32[n_points] on the device, the points in
+// the order their blocks are dispatched, each entry 2 p + s: point p (every
+// point once) and its schedule s, 1 for the round schedule and 0 for the
+// step loops (nmch_em_schedule's decision; the results do not depend on
+// the order or the schedule). conditional: 0 or 1. payoff_out
+// (float32[n_points * n_paths]) and ctr_out (uint32[n_points * n_paths])
+// are both null or both device arrays that receive each path's payoff and
+// final counter, point major.
+extern "C" int nmch_em_sweep_moments(const float* consts,
+                                     const int32_t* order, int64_t n_points,
                                      uint32_t k0, uint32_t k1,
                                      uint32_t epoch0, int64_t N,
                                      int64_t n_paths, int rng,
                                      int conditional, double* partials,
                                      double* out, float* payoff_out,
                                      uint32_t* ctr_out, void* stream) {
-  if (bad_sizes(n_points, N, n_paths) ||
+  if (bad_sizes(n_points, N, n_paths) || order == nullptr ||
       (rng != nmch::kPhilox && rng != nmch::kThreefry4) ||
       (conditional != 0 && conditional != 1) ||
       ((payoff_out == nullptr) != (ctr_out == nullptr))) {
@@ -170,16 +188,17 @@ extern "C" int nmch_em_sweep_moments(const float* consts, int64_t n_points,
   const int64_t n_blocks = n_paths / kPathThreads;
   const dim3 grid((unsigned)n_blocks, (unsigned)n_points);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using Launch = cudaError_t (*)(const float*, uint32_t, uint32_t, uint32_t,
-                                 int, dim3, double*, float*, uint32_t*,
-                                 cudaStream_t);
+  using Launch = cudaError_t (*)(const float*, const int32_t*, uint32_t,
+                                 uint32_t, uint32_t, int, dim3, double*,
+                                 float*, uint32_t*, cudaStream_t);
   constexpr Launch kLaunch[2][2] = {
       {launch_em_sweep<nmch::kPhilox, false>,
        launch_em_sweep<nmch::kPhilox, true>},
       {launch_em_sweep<nmch::kThreefry4, false>,
        launch_em_sweep<nmch::kThreefry4, true>}};
   const cudaError_t err = kLaunch[rng][conditional](
-      consts, k0, k1, epoch0, (int)N, grid, partials, payoff_out, ctr_out, st);
+      consts, order, k0, k1, epoch0, (int)N, grid, partials, payoff_out,
+      ctr_out, st);
   if (err != cudaSuccess) return (int)err;
   return (int)nmch::launch_sum_partials(partials, n_blocks, n_paths, out, st,
                                         n_points);

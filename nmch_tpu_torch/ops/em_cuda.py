@@ -15,6 +15,7 @@ import ctypes
 
 import torch
 
+from .._build import load_library
 from .em import em_consts, em_payoffs
 from .fe import LANES, moments_f64, path_index_grid
 from .fe_cuda import COUNTER_RNGS, call_kernel, check_args, check_rng, \
@@ -28,6 +29,26 @@ RNGS = COUNTER_RNGS
 def variant_name(rng: str, conditional: bool) -> str:
     """The name under which a kernel variant is counted and reported."""
     return f"em_{rng}" + ("_cond" if conditional else "")
+
+
+def em_round_schedule(consts: torch.Tensor, N: int) -> torch.Tensor:
+    """Whether the EM kernels run a point's paths on their round schedule
+    (else on the step loops): bool (P,) for a float32 (P, 13) table of
+    loop constants (``em_consts_table``) at N steps.  The one decision,
+    ``csrc/em_path.cuh::em_rounds_pay`` on the host through the library's
+    ``nmch_em_schedule``: K2 takes it at each launch, K4 reads it from its
+    dispatch table.  Needs the kernel library (a card's toolchain)."""
+    table = consts.to(torch.float32).contiguous().cpu()
+    if table.dim() != 2 or table.shape[1] != 13:
+        raise ValueError(f"consts must have shape (P, 13), not "
+                         f"{tuple(table.shape)}")
+    out = torch.empty(table.shape[0], dtype=torch.int32)
+    lib, _ = load_library()
+    rc = lib.nmch_em_schedule(table.data_ptr(), table.shape[0], int(N),
+                              out.data_ptr())
+    if rc != 0:
+        raise ValueError(f"nmch_em_schedule refused N={N}: error {rc}")
+    return out.bool()
 
 
 def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,

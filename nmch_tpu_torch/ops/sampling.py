@@ -94,6 +94,21 @@ def ptrs_log_accept_rhs(kf, lam, loglam):
             + (w - lam) - _HALF_LN_2PI - _stirling_corr(w) + logm)
 
 
+def ptrs_constants(sqrt_lam: torch.Tensor):
+    """PTRS's constants (Hörmann 1993, transformed rejection with squeeze)
+    for lam = sqrt_lam^2: (b, a, 1/alpha, v_r), float32.  The two quotients
+    are true divisions, as in ``nmch_tpu`` and ``csrc/em_path.cuh``: a
+    Python number over a tensor is torch's reciprocal times the number,
+    which rounds twice and moves a quarter of the values by an ulp (enough
+    to turn a rare acceptance, seen on the card at explore's point
+    (0.1, 0.5, 1.0) with N=1000)."""
+    b = 0.931 + 2.53 * sqrt_lam
+    a = -0.059 + 0.02483 * b
+    invalpha = 1.1239 + torch.full_like(b, 1.1328) / (b - 3.4)
+    vr = 0.9277 - torch.full_like(b, 3.6224) / (b - 2.0)
+    return b, a, invalpha, vr
+
+
 def make_lane_draw4(rng: str):
     """One 4-word block per lane at that lane's counter:
     ``draw4(ctr, epoch, path_lo, path_hi, k0, k1) -> 4 u32 words``."""
@@ -189,11 +204,7 @@ def poisson_from_stream(lam, ctr, epoch, path_lo, path_hi, k0, k1,
     sqrt_lam = sqrt_f32(lam)
     target = torch.exp(-lam)                    # Knuth product threshold
     if any_mid:
-        # PTRS constants (Hörmann 1993, transformed rejection with squeeze)
-        b = 0.931 + 2.53 * sqrt_lam
-        a = -0.059 + 0.02483 * b
-        invalpha = 1.1239 + 1.1328 / (b - 3.4)
-        vr = 0.9277 - 3.6224 / (b - 2.0)
+        b, a, invalpha, vr = ptrs_constants(sqrt_lam)
         loglam = torch.log(lam)
 
     active = torch.ones_like(small)

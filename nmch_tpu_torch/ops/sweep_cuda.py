@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from .em import em_consts_table
-from .em_cuda import variant_name
+from .em_cuda import em_round_schedule, variant_name
 from .fe import LANES
 from .fe_cuda import COUNTER_RNGS, RNGS, call_kernel, check_rng, \
     check_sizes, check_u32, count_launch
@@ -82,6 +82,35 @@ fe_sweep_cuda.launches = 0
 fe_sweep_cuda.variant_launches = {}
 
 
+def em_rounds_share(params_matrix, consts: torch.Tensor) -> torch.Tensor:
+    """float64 (P,): for each point, the share of steps whose Poisson draw
+    leaves the normal branch, estimated as P(v < cut / lam_const) for
+    v_{T/2} given v_0 under a Gamma law with the CIR process's mean and
+    variance: the cost key of K4's dispatch order.  It decides no
+    schedule: ``em_cuda.em_round_schedule`` does, from the same estimate in
+    float32 on the host.  consts: the float32 (P, 13) ``em_consts_table``
+    of params_matrix (rows (T, S_0, v_0, r, k, rho, theta, sigma))."""
+    T, _, v_0, _, k, _, theta, sigma = params_matrix.double().unbind(1)
+    c = consts.double()
+    e = torch.exp(-0.5 * k * T)
+    mean = theta + (v_0 - theta) * e
+    var = sigma * sigma * (1.0 - e) * (v_0 * e + 0.5 * theta * (1.0 - e)) / k
+    return torch.special.gammainc(mean * mean / var,
+                                  c[:, 12] / c[:, 2] * mean / var)
+
+
+def em_point_order(params_matrix, consts: torch.Tensor) -> torch.Tensor:
+    """The order in which K4 dispatches the points' blocks: int64 (P,), a
+    permutation of 0..P-1, heaviest point first (``em_rounds_share``, the
+    share of steps off the normal branch: such points run more rounds and
+    mix samplers within a warp), ties in grid order.  Dispatched first,
+    they leave the one-round normal-branch points to fill the launch's
+    tail.  consts: the float32 (P, 13) ``em_consts_table`` of
+    params_matrix."""
+    return torch.argsort(-em_rounds_share(params_matrix, consts),
+                         stable=True)
+
+
 def em_sweep_cuda(params_matrix, seed_words, epoch0, *, N: int,
                   n_paths: int, device, rng: str = "philox",
                   conditional: bool = False,
@@ -92,7 +121,9 @@ def em_sweep_cuda(params_matrix, seed_words, epoch0, *, N: int,
     Arguments as ``fe_sweep_cuda``, plus ``conditional`` and
     ``poisson_cut`` (None means 4000, as at the ops layer); the points'
     loop constants (``em_consts_table``) go to the card as a (P, 13)
-    table.  per_path=True also returns each path's payoff (float32) and
+    table, and the order of their blocks (``em_point_order``) with each
+    point's schedule (``em_round_schedule``) as a (P,) one.
+    per_path=True also returns each path's payoff (float32) and
     final counter (int64), (P, n_paths/128, 128).  Each launch adds one to
     ``em_sweep_cuda.launches`` and to ``em_sweep_cuda.variant_launches[
     "em_sweep_" + variant]``."""
@@ -107,14 +138,19 @@ def em_sweep_cuda(params_matrix, seed_words, epoch0, *, N: int,
                               per_path=per_path)
     P = params_matrix.shape[0]
     name = "em_sweep_" + variant_name(rng, conditional)[len("em_"):]
-    consts = em_consts_table(params_matrix, N, poisson_cut).to(device)
+    table = em_consts_table(params_matrix, N, poisson_cut)
+    order = em_point_order(params_matrix, table)
+    dispatch = (2 * order + em_round_schedule(table, N)[order].long()).to(
+        device, torch.int32)
+    consts = table.to(device)
     partials, out = _scratch(device, P, n_paths)
     payoff = ctr = None
     if per_path:
         shape = (P, n_paths // LANES, LANES)
         payoff = torch.empty(shape, dtype=torch.float32, device=device)
         ctr = torch.empty(shape, dtype=torch.int32, device=device)
-    call_kernel("nmch_em_sweep_moments", name, device, consts.data_ptr(), P,
+    call_kernel("nmch_em_sweep_moments", name, device, consts.data_ptr(),
+                dispatch.data_ptr(), P,
                 k0, k1, epoch0, N, n_paths, RNGS.index(rng),
                 int(bool(conditional)), partials.data_ptr(), out.data_ptr(),
                 None if payoff is None else payoff.data_ptr(),

@@ -74,3 +74,22 @@ def card_name_and_power_limit() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def device_ops(fn, calls: int = 1) -> list:
+    """The names of the device operations (kernels, memsets, copies) that
+    ``calls`` calls of ``fn()`` put on the card, in the order the profiler
+    records them.  torch.profiler runs a warm-up cycle of the same calls
+    first and reports the next cycle alone, so that the activity records
+    that a freshly started trace may drop fall in the warm-up."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]

@@ -147,7 +147,8 @@ def test_package_and_cli_import_no_jax():
             "nmch_tpu_torch.ops.sweep, nmch_tpu_torch.ops.sweep_cuda, "
             "nmch_tpu_torch.analysis.heatmap, nmch_tpu_torch.rng.sobol, "
             "nmch_tpu_torch.ops.fe_qmc, nmch_tpu_torch.ops.fe_qmc_cuda, "
-            "nmch_tpu_torch.rng.threefry, nmch_tpu_torch.rng.device; "
+            "nmch_tpu_torch.rng.threefry, nmch_tpu_torch.rng.device, "
+            "nmch_tpu_torch.ops.em_schedule; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'nmch_tpu' not in sys.modules, 'nmch_tpu imported'")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -147,6 +147,27 @@ def test_ptrs_log_accept_rhs_matches_nmch_tpu(lam):
     assert (np.abs(want - got) <= 1e-6 * scale).all()
 
 
+def test_ptrs_constants_are_true_float32_divisions():
+    """PTRS's b, a, 1/alpha and v_r bitwise nmch_tpu's float32 arithmetic
+    (numpy's, IEEE like XLA's and the kernel's) over lam in [10, 4000];
+    the reciprocal-times-number form that a Python number over a tensor
+    gives in torch is not (it moved the plain version off the card's
+    kernel at explore's point (0.1, 0.5, 1.0), N=1000)."""
+    lam = np.linspace(10.0, 4000.0, 1 << 16, dtype=np.float32)
+    s_np = np.sqrt(lam.astype(np.float64)).astype(np.float32)
+    f = np.float32
+    b = f(0.931) + f(2.53) * s_np
+    want = (b, f(-0.059) + f(0.02483) * b,
+            f(1.1239) + f(1.1328) / (b - f(3.4)),
+            f(0.9277) - f(3.6224) / (b - f(2.0)))
+    got = ts.ptrs_constants(torch.from_numpy(s_np))
+    for w, g in zip(want, got):
+        assert np.array_equal(w.view(np.uint32), g.numpy().view(np.uint32))
+    bt = torch.from_numpy(b)
+    assert not torch.equal(1.1328 / (bt - 3.4),
+                           torch.full_like(bt, 1.1328) / (bt - 3.4))
+
+
 @pytest.mark.parametrize("rng,match", [
     ("mrg32k3a", "stateful family"), ("xorwow", "stateful family"),
     ("tpu", "unknown"),
