@@ -31,7 +31,8 @@ CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "fe.cu", CSRC / "fe_device.cu", CSRC / "em.cu",
            CSRC / "sweep.cu", CSRC / "fe_stateful.cu", CSRC / "qmc.cu",
            CSRC / "reduction.cu", CSRC / "qmc_fused.cu",
-           CSRC / "chain_probe.cu")
+           CSRC / "chain_probe.cu", CSRC / "fe_greeks.cu",
+           CSRC / "em_lrm.cu")
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_ROOT = _PKG.parent / "build" / "nmch_tpu_torch"
 LIB_NAME = "libnmch_tpu_torch.so"
@@ -154,6 +155,19 @@ def load_library() -> tuple[ctypes.CDLL, BuildInfo]:
         [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 3
         + [ctypes.c_void_p])
     lib.nmch_chain.restype = ctypes.c_int
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.nmch_em_law.argtypes = (
+        [f32p] + [ctypes.c_uint32] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_int]
+        + [ctypes.c_void_p] * 4)
+    lib.nmch_em_law.restype = ctypes.c_int
+    lib.nmch_fe_greeks.argtypes = (
+        [f32p] * 2 + [ctypes.c_uint32] * 4 + [ctypes.c_int64] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
+    lib.nmch_fe_greeks.restype = ctypes.c_int
+    lib.nmch_em_lrm.argtypes = (
+        [f32p] * 2 + [ctypes.c_uint32] * 4 + [ctypes.c_int64] * 2
+        + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+    lib.nmch_em_lrm.restype = ctypes.c_int
     lib.nmch_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nmch_cuda_error_string.restype = ctypes.c_char_p
     return lib, info

@@ -72,8 +72,10 @@ def measure(dtype: str, rows: int, with_sqrt: bool, rsqrt: bool = False, *,
 def collect(measure_fn, f32_rows: int = ROWS["f32"]) -> dict:
     """The probe's JSON record: ``measure_fn(dtype, rows, with_sqrt,
     rsqrt)`` for each dtype and tail (bf16 at twice the rows); a variant
-    refused with ``CapabilityError`` is recorded as ``*_error``."""
-    out = {}
+    refused with ``CapabilityError`` is recorded as ``*_error``.  Each
+    ratio_* is formed from the unrounded rates, and left out where the
+    float32 rate is 0."""
+    out, rate = {}, {}
     for name in DTYPES:
         rows = f32_rows * ROWS[name] // ROWS["f32"]
         for tag, ws, rs in VARIANTS:
@@ -82,12 +84,13 @@ def collect(measure_fn, f32_rows: int = ROWS["f32"]) -> dict:
             except CapabilityError as e:
                 out[f"{name}_{tag}_error"] = str(e).splitlines()[0][:120]
                 continue
+            rate[name, tag] = elops
             out[f"{name}_{tag}_Gelops"] = round(elops / 1e9, 1)
             out[f"{name}_{tag}_ms"] = round(dt * 1e3, 3)
     for tag, _, _ in VARIANTS:
-        a, b = f"bf16_{tag}_Gelops", f"f32_{tag}_Gelops"
-        if a in out and b in out:
-            out[f"ratio_{tag}"] = round(out[a] / out[b], 3)
+        a, b = rate.get(("bf16", tag)), rate.get(("f32", tag))
+        if a is not None and b:
+            out[f"ratio_{tag}"] = round(a / b, 3)
     return out
 
 

@@ -10,9 +10,17 @@ NTPB=512, NB=512, N=1000, seed=1234), except:
   ``--device`` (default cuda; never falls back to the CPU);
 * ``--rng device``, the card's own stream (``rng/device.py``), in place
   of ``--rng tpu`` (the TPU's hardware generator): tpu stays a choice, as
-  in ``nmch_tpu``, and exits 2 with a message that names device;
-* ``--greeks`` is a parser error that names the ROADMAP.md slice that
-  brings it.
+  in ``nmch_tpu``, and exits 2 with a message that names device.
+
+``--greeks`` adds the sensitivities after the timed run, as in
+``nmch_tpu``: FE with a counter rng (philox/threefry/threefry4) the
+pathwise Greeks of all 8 parameters (kernel G1 on the card), EM the
+pathwise (S_0, r, rho) and the CRN central differences of the other five
+(K2's law build and ten conditional launches); other FE rngs print a note
+and skip them.  The stats line keeps ``nmch_tpu``'s labels, "Pathwise
+Greeks (jax.grad)" included, so that the two CLIs print the same text:
+the port computes those values by forward-mode tangents (G1) on the card
+and by torch.autograd on the CPU, and runs no JAX.
 
 Run: ``python -m nmch_tpu_torch.cli`` (the FE main path on the card) or
 ``python -m nmch_tpu_torch.cli --method em`` (the exact scheme, with
@@ -102,7 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--oracle", action="store_true",
                    help="also print the semi-analytic Heston price")
     p.add_argument("--greeks", action="store_true",
-                   help="sensitivities (ROADMAP.md slice 7)")
+                   help="also compute sensitivities: FE pathwise Greeks "
+                        "(counter rngs), EM pathwise S_0/r/rho + CRN-FD "
+                        "for T/v_0/k/theta/sigma")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip the untimed warm-up run (timing will include "
                         "the kernel build, like the reference's first run)")
@@ -115,9 +125,6 @@ def build_parser() -> argparse.ArgumentParser:
 def run(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.greeks:
-        parser.error("--greeks is not ported yet (ROADMAP.md Queue 1, "
-                     "slice 7: sensitivities)")
     if args.engine is None:
         # resolve the default, never downgrade: EM's stateful families
         # run on the scan engine only (nmch_tpu/cli.py:113-121)
@@ -168,6 +175,18 @@ def run(argv=None) -> int:
         # the warm-up draws its own epoch, so the timed run is fresh
         m.compute()
     res = m.compute()
+    greeks = None
+    if args.greeks:
+        if args.method == "fe" and args.rng in ("philox", "threefry",
+                                                "threefry4"):
+            greeks = m.greeks()
+        elif args.method == "em":
+            # pathwise (S_0, r, rho) + CRN-FD (T, v_0, k, theta, sigma);
+            # a stateful rng raises greeks()'s ValueError, as in nmch_tpu
+            greeks = m.greeks(fd=True)
+        else:
+            print("note: --greeks needs a counter rng; ignoring",
+                  file=sys.stderr)
     if args.json:
         rec = {
             "method": args.method, "engine": args.engine,
@@ -180,6 +199,9 @@ def run(argv=None) -> int:
             "exec_time_ms": res.exec_time_ms,
             "init_time_ms": m.init_time_ms,
         }
+        if greeks is not None:
+            rec["greeks"] = {k: v for k, v in greeks.items()
+                             if k != "price"}
         if args.oracle:
             rec["heston_oracle"] = heston_call_undiscounted(params)
         print(json.dumps(rec))
@@ -190,6 +212,14 @@ def run(argv=None) -> int:
             # over the randomized replicates
             print(f"RQMC 95% CI (shift-replicate spread): "
                   f"{res.ci_error:e}")
+        if greeks is not None:
+            gl = ", ".join(f"d/d{k}={v:+.5f}" for k, v in greeks.items()
+                           if k != "price")
+            # nmch_tpu's labels, kept for output parity (module docstring)
+            label = ("Pathwise Greeks (jax.grad)" if args.method == "fe"
+                     else "EM sensitivities (pathwise S_0/r/rho, CRN-FD "
+                          "rest)")
+            print(f"{label}: {gl}")
         if args.oracle:
             print(f"Semi-analytic Heston price (undiscounted): "
                   f"{heston_call_undiscounted(params):f}")

@@ -8,7 +8,12 @@
 // em_moments_pallas, em_pallas.py:117), in each of its variants: rng philox
 // or threefry4 and `conditional` off or on are template parameters (four
 // kernels); poisson_cut, the parameters, the keys, the epoch and base_path
-// are runtime arguments, so a sweep never rebuilds.
+// are runtime arguments, so a sweep never rebuilds. The law build
+// (em_law_paths, nmch_em_law) is the conditional kernel that also writes
+// each path's (v_T, vI), for the pathwise EM Greeks (ops/em_greeks.py), the
+// counterpart of the path law that nmch_tpu/ops/em_greeks.py takes from its
+// scan engine; it is instantiated apart from the four, which keep their
+// registers.
 //
 // What bounds it on an H100: instruction issue. A step costs a Poisson
 // draw (one round on the normal branch above the cut, a geometric number of
@@ -77,6 +82,39 @@ cudaError_t launch_em_paths(const EmArgs& a, int64_t n_blocks,
   return cudaGetLastError();
 }
 
+// The law build: the conditional payoff into the sum, and each path's
+// (v_T, vI) into law_out[idx] and law_out[n_paths + idx]. Its own
+// instantiations, so that the builds above keep their registers.
+template <int R, bool kRounds>
+__global__ void __launch_bounds__(kPathThreads)
+    em_law_paths(EmArgs a, double* __restrict__ partials,
+                 float* __restrict__ law_out, int64_t n_paths) {
+  const uint32_t idx = blockIdx.x * kPathThreads + threadIdx.x;
+  const uint32_t path = a.base_path + idx;
+  uint32_t ctr;
+  nmch::LawReport law;
+  const float payoff =
+      kRounds ? nmch::em_path_rounds<R, true>(a, path, ctr, law)
+              : nmch::em_path_steps<R, true>(a, path, ctr, law);
+  law_out[idx] = law.v_T;
+  law_out[n_paths + idx] = law.vI;
+  nmch::block_sum_to_partials(payoff, partials);
+}
+
+template <int R>
+cudaError_t launch_em_law(const EmArgs& a, int64_t n_paths, double* partials,
+                          float* law_out, cudaStream_t st) {
+  const unsigned g = (unsigned)(n_paths / kPathThreads);
+  if (nmch::em_rounds_pay(a)) {
+    em_law_paths<R, true><<<g, kPathThreads, 0, st>>>(a, partials, law_out,
+                                                       n_paths);
+  } else {
+    em_law_paths<R, false><<<g, kPathThreads, 0, st>>>(a, partials, law_out,
+                                                        n_paths);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // (E[X], E[X^2]) of n_paths EM paths into out[0..1] (float64, device).
@@ -93,18 +131,13 @@ extern "C" int nmch_em_moments(const float* consts, uint32_t k0, uint32_t k1,
                                double* partials, double* out,
                                float* payoff_out, uint32_t* ctr_out,
                                void* stream) {
-  if (N < 1 || N > (int64_t(1) << 30) || n_paths < kPathThreads ||
-      n_paths % kPathThreads != 0 || n_paths > (int64_t(1) << 32) ||
+  if (nmch::em_bad_sizes(N, n_paths) ||
       (rng != nmch::kPhilox && rng != nmch::kThreefry4) ||
       (conditional != 0 && conditional != 1) ||
       ((payoff_out == nullptr) != (ctr_out == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  static_assert(nmch::kEmConsts == 13, "EmArgs takes 13 constants");
-  const float* c = consts;
-  const EmArgs a{c[0], c[1], c[2], c[3],  c[4],  c[5],  c[6],
-                 c[7], c[8], c[9], c[10], c[11], c[12],
-                 k0,   k1,   epoch, base_path, (int)N};
+  const EmArgs a = nmch::em_args(consts, k0, k1, epoch, base_path, N);
   const int64_t n_blocks = n_paths / kPathThreads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using Launch = cudaError_t (*)(const EmArgs&, int64_t, double*, float*,
@@ -118,6 +151,32 @@ extern "C" int nmch_em_moments(const float* consts, uint32_t k0, uint32_t k1,
                                                     payoff_out, ctr_out, st);
   if (err != cudaSuccess) return (int)err;
   return (int)nmch::launch_sum_partials(partials, n_blocks, n_paths, out, st);
+}
+
+// The conditional moments of nmch_em_moments into out[0..1], and each path's
+// law, v_T into law_out[0 .. n_paths) and vI into law_out[n_paths .. 2 *
+// n_paths) (float32, device): the values ops/em.py::path_law_from_consts
+// returns, from the conditional build's schedule (em_rounds_pay). The
+// pathwise Greeks (ops/em_greeks.py) differentiate the conditional payoff
+// on them. Returns as nmch_em_moments.
+extern "C" int nmch_em_law(const float* consts, uint32_t k0, uint32_t k1,
+                           uint32_t epoch, uint32_t base_path, int64_t N,
+                           int64_t n_paths, int rng, double* partials,
+                           double* out, float* law_out, void* stream) {
+  if (nmch::em_bad_sizes(N, n_paths) || law_out == nullptr ||
+      (rng != nmch::kPhilox && rng != nmch::kThreefry4)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const EmArgs a = nmch::em_args(consts, k0, k1, epoch, base_path, N);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      rng == nmch::kPhilox
+          ? launch_em_law<nmch::kPhilox>(a, n_paths, partials, law_out, st)
+          : launch_em_law<nmch::kThreefry4>(a, n_paths, partials, law_out,
+                                            st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)nmch::launch_sum_partials(partials, n_paths / kPathThreads,
+                                        n_paths, out, st);
 }
 
 // The schedule em_path.cuh runs for each of n_points rows of loop constants
@@ -134,10 +193,8 @@ extern "C" int nmch_em_schedule(const float* consts, int64_t n_points,
     return (int)cudaErrorInvalidValue;
   }
   for (int64_t p = 0; p < n_points; ++p) {
-    const float* c = consts + nmch::kEmConsts * p;
-    const EmArgs a{c[0], c[1], c[2], c[3],  c[4],  c[5],  c[6],
-                   c[7], c[8], c[9], c[10], c[11], c[12],
-                   0u,   0u,   0u,   0u,    (int)N};
+    const EmArgs a =
+        nmch::em_args(consts + nmch::kEmConsts * p, 0u, 0u, 0u, 0u, N);
     out[p] = nmch::em_rounds_pay(a) ? 1 : 0;
   }
   return 0;

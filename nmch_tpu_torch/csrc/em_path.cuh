@@ -53,10 +53,12 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "counter_rng.cuh"
 #include "fe_path.cuh"
+#include "reduce.cuh"
 
 namespace nmch {
 namespace {
@@ -70,6 +72,22 @@ struct EmArgs {
   int N;
 };
 constexpr int kEmConsts = 13;
+
+// The C entries' size checks: at least one block of paths, whole blocks.
+inline bool em_bad_sizes(int64_t N, int64_t n_paths) {
+  return N < 1 || N > (int64_t(1) << 30) || n_paths < kPathThreads ||
+         n_paths % kPathThreads != 0 || n_paths > (int64_t(1) << 32);
+}
+
+// EmArgs from the kEmConsts float32 constants (host memory) and the stream
+// coordinates.
+inline EmArgs em_args(const float* c, uint32_t k0, uint32_t k1,
+                      uint32_t epoch, uint32_t base_path, int64_t N) {
+  static_assert(kEmConsts == 13, "EmArgs takes 13 constants");
+  return EmArgs{c[0], c[1], c[2], c[3],  c[4],  c[5],  c[6],
+                c[7], c[8], c[9], c[10], c[11], c[12],
+                k0,   k1,   epoch, base_path, (int)N};
+}
 
 // float32 literals of nmch_tpu/ops/sampling.py and ops/em.py (shortest
 // round-trip decimal of each float32 value); tests/test_torch_em.py parses
@@ -284,19 +302,49 @@ __device__ float gamma_ms(float alpha0, uint32_t& ctr, const EmArgs& a,
   return alpha * C;
 }
 
-template <int R, bool kConditional>
-__device__ float em_path_steps(const EmArgs& a, uint32_t path, uint32_t& ctr) {
+// What a path reports beside its payoff. em_path_steps calls step() after
+// each step's two draws (the step i, v_t, lam = lam_const v_t, the Poisson
+// index n, the Gamma shape alpha = d + n and the Gamma draw g) and end()
+// with v_T and the running sum of (v_t + v_{t+dt}); em_path_rounds calls
+// end() only (kPerStep false). The pricing builds report nothing: NoReport's
+// empty calls compile away, so those builds keep their registers.
+struct NoReport {
+  static constexpr bool kPerStep = false;
+  __device__ void step(const EmArgs&, int, float, float, float, float,
+                       float) {}
+  __device__ void end(const EmArgs&, float, float) {}
+};
+
+// The law build's report (em.cu): the values of ops/em.py::
+// path_law_from_consts, v_T and vI = the running sum times dt/2.
+struct LawReport {
+  static constexpr bool kPerStep = false;
+  float v_T = 0.0f, vI = 0.0f;
+  __device__ void step(const EmArgs&, int, float, float, float, float,
+                       float) {}
+  __device__ void end(const EmArgs& a, float Vt, float vI_sum) {
+    v_T = Vt;
+    vI = vI_sum * a.half_dt;
+  }
+};
+
+template <int R, bool kConditional, class Report = NoReport>
+__device__ float em_path_steps(const EmArgs& a, uint32_t path, uint32_t& ctr,
+                               Report&& rep = Report()) {
   float Vt = a.v_0;
   float vI = 0.0f;
   ctr = 0u;
   for (int i = 0; i < a.N; ++i) {
     const float lam = a.lam_const * Vt;
     const float n_p = poisson<R>(lam, ctr, a, path);
-    const float gam = gamma_ms<R>(a.d + n_p, ctr, a, path);
+    const float alpha = a.d + n_p;
+    const float gam = gamma_ms<R>(alpha, ctr, a, path);
+    rep.step(a, i, Vt, lam, n_p, alpha, gam);
     const float v_next = a.vfac * gam;
     vI = vI + (Vt + v_next);  // dt/2 applied once after the loop
     Vt = v_next;
   }
+  rep.end(a, Vt, vI);
   float m, sig_eff;
   path_law(a, Vt, vI, m, sig_eff);
   if (kConditional) return conditional_payoff(a, m, sig_eff);
@@ -379,9 +427,12 @@ __device__ __forceinline__ void begin_step(EmLane& s, const EmArgs& a,
   }
 }
 
-template <int R, bool kConditional>
-__device__ float em_path_rounds(const EmArgs& a, uint32_t path,
-                               uint32_t& ctr) {
+// Report: as em_path_steps, end() only.
+template <int R, bool kConditional, class Report = NoReport>
+__device__ float em_path_rounds(const EmArgs& a, uint32_t path, uint32_t& ctr,
+                                Report&& rep = Report()) {
+  static_assert(!std::remove_reference_t<Report>::kPerStep,
+                "a per-step report runs on the step loops");
   constexpr unsigned kWarpAll = 0xFFFFFFFFu;
   EmLane s;
   s.Vt = a.v_0;
@@ -504,6 +555,7 @@ __device__ float em_path_rounds(const EmArgs& a, uint32_t path,
     s.stage = kStageGamma;
     s.rnd = 0;
   }
+  rep.end(a, s.Vt, s.vI);
   ctr = s.ctr;
   return payoff;
 }

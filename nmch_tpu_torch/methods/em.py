@@ -12,12 +12,14 @@ Both draw from the counter-based philox or threefry4 streams keyed by
 curand families xorwow and mrg32k3a (the reference prices EM with XORWOW,
 exploration.cu:54-55) run on the scan engine only, as in ``nmch_tpu``
 (methods/em.py:61-67): each path's recurrence state starts at stream
-(seed, path, epoch) and is carried through the sampler rounds.  The
-sensitivities are a later slice of the port (ROADMAP.md Queue 1) and are
-refused by name until they land.
+(seed, path, epoch) and is carried through the sampler rounds.
+``greeks()`` gives the sensitivities (pathwise, CRN-FD or score function)
+with the counter families.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..ops.em import FAST_POISSON_CUT, em_moments_scan
 from ..ops.em_cuda import em_moments_cuda
@@ -86,7 +88,48 @@ class NMCH_EM(NMCH):
                                rng=self.rng, conditional=self.conditional,
                                poisson_cut=self.poisson_cut, seed=seed)
 
-    def greeks(self, *args, **kwargs) -> dict:
-        raise NotImplementedError("EM sensitivities are not ported yet "
-                                  "(ROADMAP.md Queue 1, slice 7: "
-                                  "sensitivities)")
+    def greeks(self, fix_strike: bool = False,
+               fd: bool = False, lrm: bool = False) -> dict:
+        """EM sensitivities (ops/em_greeks.py, ops/em_lrm.py).  Default:
+        the exactly pathwise subset, dP/dS_0, dP/dr and dP/drho, by
+        autograd through the conditional payoff with each path's variance
+        path held fixed.  fd=True adds central differences with common
+        random numbers for (T, v_0, k, theta, sigma), whose Poisson and
+        Gamma rejection sampling breaks pathwise differentiation; lrm=True
+        estimates the same five by the score function instead, at the
+        strict Poisson cut 4000.  Consumes one epoch (two with fd or lrm).
+        On a card the paths come from kernel K2: its law build, ten
+        conditional launches (fd) or K2-LRM (lrm); on the CPU from the
+        plain versions.  Returns {"price": float, "S_0": ..., ...}."""
+        if fd and lrm:
+            raise ValueError("pass fd=True or lrm=True, not both (they "
+                             "estimate the same five parameters)")
+        if self.streams is None:
+            raise RuntimeError("call init(seed) before greeks()")
+        if self.rng not in ("philox", "threefry4"):
+            raise ValueError("greeks() needs a counter rng "
+                             "(philox/threefry4)")
+        from ..ops.em_greeks import em_greeks_fd, em_price_and_greeks
+        from ..ops.em_lrm import em_greeks_lrm
+        k0, k1 = self.streams.key_words
+        pv = self.params.as_tensor("cpu")
+        kw = dict(N=self.cfg.N, n_paths=self.cfg.n_paths, rng=self.rng,
+                  device=self.device)
+        price, grads = em_price_and_greeks(
+            pv, self.streams.next_epoch(), k0, k1,
+            poisson_cut=self.poisson_cut, fix_strike=fix_strike, **kw)
+        extra = {}
+        if fd:
+            extra = em_greeks_fd(pv, self.streams.next_epoch(), k0, k1,
+                                 poisson_cut=self.poisson_cut, **kw)
+        elif lrm:
+            # the strict cut (None -> 4000): the scored density must be the
+            # sampled law (ops/em_lrm.py)
+            _, extra = em_greeks_lrm(pv, self.streams.next_epoch(), k0, k1,
+                                     **kw)
+        # nmch_tpu's key order: each of its dicts comes back from jit
+        # sorted by name
+        out = {"price": price, **dict(sorted(grads.items())),
+               **dict(sorted(extra.items()))}
+        vals = torch.stack([v.to("cpu") for v in out.values()]).tolist()
+        return dict(zip(out, vals))

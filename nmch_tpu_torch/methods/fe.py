@@ -23,9 +23,12 @@ stream (rng/device.py), the counterpart of nmch_tpu's rng="tpu" (the
 TPU's hardware generator, refused here by name), on engine="cuda" only.
 Rotation sampling (``rot`` 2, 4, 8; ``antithetic`` is rot 2) prices the
 mean of rot coupled copies per stream, with the counter families.
+``greeks()`` gives the pathwise sensitivities (kernel G1 on a card).
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..ops.fe import DEVICE_NOT_TPU, fe_moments_rot_scan, fe_moments_scan, \
     path_index_grid
@@ -146,6 +149,42 @@ class NMCH_FE(NMCH):
                                        rng=self.rng, rot=self.rot)
         return fe_moments_scan(pv, self.cfg.N, pidx, epoch, k0, k1,
                                rng=self.rng)
+
+    def greeks(self, fix_strike: bool = False) -> dict:
+        """Pathwise Greeks of the price: {"price": float, "S_0": dP/dS_0,
+        "T": dP/dT, ...} over ops/greeks.py::PARAM_NAMES.  Consumes one
+        epoch (the stream contract of compute()).  Needs a counter rng
+        (philox/threefry/threefry4) and works on the plain Euler paths
+        (rot 1, box hc) whatever this object's engine, rot or antithetic.
+        On a card it launches kernel G1 (forward-mode tangents,
+        ops/fe_greeks_cuda.py), on the CPU it runs the reverse-mode golden
+        (ops/greeks.py).  fix_strike=True freezes K for the fixed-strike
+        delta instead of the reference's K = S_0 coupling.  The Greeks come
+        in nmch_tpu's order (by name)."""
+        if self.streams is None:
+            raise RuntimeError("call init(seed) before greeks()")
+        if self.rng not in ("philox", "threefry", "threefry4"):
+            raise ValueError("greeks() needs a counter rng "
+                             "(philox/threefry/threefry4)")
+        from ..ops.fe_greeks_cuda import fe_greeks_cuda
+        from ..ops.greeks import PARAM_NAMES, fe_price_and_greeks
+        epoch = self.streams.next_epoch()
+        k0, k1 = self.streams.key_words
+        pv = self.params.as_tensor("cpu")
+        if self.device.type == "cuda":
+            price, grads = fe_greeks_cuda(
+                pv, (k0, k1), epoch, 0, N=self.cfg.N,
+                n_paths=self.cfg.n_paths, device=self.device, rng=self.rng,
+                fix_strike=fix_strike)
+        else:
+            price, g = fe_price_and_greeks(
+                pv, epoch, k0, k1, N=self.cfg.N, n_paths=self.cfg.n_paths,
+                rng=self.rng, fix_strike=fix_strike)
+            grads = torch.stack([g[n] for n in PARAM_NAMES])
+        vals = torch.cat([price.reshape(1).double(), grads.double()]).tolist()
+        # nmch_tpu's key order: its Greeks come back from jit sorted by name
+        return {"price": vals[0],
+                **dict(sorted(zip(PARAM_NAMES, vals[1:])))}
 
     def _stateful_scan(self, epoch: int):
         if self.rng == "xorwow":

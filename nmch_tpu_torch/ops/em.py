@@ -198,11 +198,19 @@ def norm_cdf_vec(x: torch.Tensor) -> torch.Tensor:
 
 def em_conditional_payoff(m, sig_eff, K: float, log_K: float):
     """E[(S_T - K)^+ | variance path] = e^{m+s^2/2} Phi(s - d) - K Phi(-d),
-    d = (ln K - m)/s (conditional Monte Carlo)."""
+    d = (ln K - m)/s (conditional Monte Carlo).  K and log_K: floats, or
+    tensors that broadcast against m (``conditional_payoff_of_strike``)."""
     s = torch.clamp_min(sig_eff, float(np.float32(1e-12)))
     d = (log_K - m) / s
     return (torch.exp(m + 0.5 * s * s) * norm_cdf_vec(s - d)
             - K * norm_cdf_vec(-d))
+
+
+def conditional_payoff_of_strike(m, sig_eff, K: torch.Tensor):
+    """``em_conditional_payoff`` at a strike K that is a float32 tensor, ln
+    K taken here (``nmch_tpu``'s em_conditional_payoff takes K traced):
+    differentiable in K, for the Greeks' K = S_0 coupling."""
+    return em_conditional_payoff(m, sig_eff, K, torch.log(K))
 
 
 def em_terminal(params, N: int, path_idx, epoch, k0, k1,

@@ -7,6 +7,8 @@ block that sums the per-block partials) or raises; on the CPU it runs the
 plain version, ``ops/em.py::em_payoffs``, which computes the same payoffs
 operation for operation.  Parameters, ``poisson_cut`` and streams are
 runtime arguments, so a parameter sweep never rebuilds the kernel.
+``em_law_cuda`` launches K2's law build, the conditional kernel that also
+writes each path's (v_T, vI) for the pathwise Greeks.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import ctypes
 import torch
 
 from .._build import load_library
-from .em import em_consts, em_payoffs
+from .em import em_conditional_payoff, em_consts, em_payoffs, \
+    path_law_from_consts
 from .fe import LANES, moments_f64, path_index_grid
 from .fe_cuda import COUNTER_RNGS, call_kernel, check_args, check_rng, \
     count_launch
@@ -29,6 +32,12 @@ RNGS = COUNTER_RNGS
 def variant_name(rng: str, conditional: bool) -> str:
     """The name under which a kernel variant is counted and reported."""
     return f"em_{rng}" + ("_cond" if conditional else "")
+
+
+def law_variant_name(rng: str) -> str:
+    """The name under which the law build (``em_law_cuda``) is counted and
+    reported."""
+    return f"em_{rng}_cond_law"
 
 
 def em_round_schedule(consts: torch.Tensor, N: int) -> torch.Tensor:
@@ -105,3 +114,43 @@ def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
 
 em_moments_cuda.launches = 0
 em_moments_cuda.variant_launches = {}
+
+
+def em_law_cuda(params, seed_words, epoch, base_path, *, N: int,
+                n_paths: int, device, rng: str = "philox",
+                poisson_cut: float | None = None):
+    """(E[X], E[X^2], v_T, vI) of the conditional estimator over n_paths
+    EM paths, from K2's law build: the moments as
+    ``em_moments_cuda(..., conditional=True)`` gives them (the same paths
+    and sums), and each path's (v_T, vI), float32 (n_paths/128, 128) on
+    ``device``: the values ``ops/em.py::path_law_from_consts`` returns, for
+    the pathwise Greeks.  Arguments as ``em_moments_cuda``.  Each launch
+    adds one to ``em_law_cuda.launches`` and to
+    ``em_law_cuda.variant_launches[law_variant_name(rng)]``."""
+    device, N, n_paths, k0, k1, epoch, base_path = check_args(
+        params, seed_words, epoch, base_path, N, n_paths, device)
+    check_rng(rng, "EM")
+    c = em_consts(params, N, poisson_cut)
+    if device.type == "cpu":
+        path = path_index_grid(n_paths, base_path)
+        m, sig_eff, v_T, vI, _ = path_law_from_consts(
+            c, N, path, torch.zeros_like(path), epoch, k0, k1, rng)
+        m1, m2 = moments_f64(em_conditional_payoff(m, sig_eff, c.S_0,
+                                                   c.log_S0))
+        return m1, m2, v_T, vI
+    consts = (ctypes.c_float * 13)(*c)
+    partials = torch.empty(2 * (n_paths // LANES), dtype=torch.float64,
+                           device=device)
+    out = torch.empty(2, dtype=torch.float64, device=device)
+    law = torch.empty(2, n_paths // LANES, LANES, dtype=torch.float32,
+                      device=device)
+    name = law_variant_name(rng)
+    call_kernel("nmch_em_law", name, device, consts, k0, k1, epoch,
+                base_path, N, n_paths, RNGS.index(rng), partials.data_ptr(),
+                out.data_ptr(), law.data_ptr())
+    count_launch(em_law_cuda, name)
+    return out[0], out[1], law[0], law[1]
+
+
+em_law_cuda.launches = 0
+em_law_cuda.variant_launches = {}

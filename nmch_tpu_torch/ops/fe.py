@@ -144,6 +144,12 @@ def moments_f64(payoff: torch.Tensor):
             (payoff * payoff).double().sum() / n)
 
 
+def mean_f32(x: torch.Tensor) -> torch.Tensor:
+    """sum(x) / x.numel() in float32, a true division (torch on a card
+    multiplies by the reciprocal of a Python divisor)."""
+    return x.sum() / torch.tensor(float(x.numel()), device=x.device)
+
+
 def fe_moments_scan(params_vec, N: int, path_idx, epoch, k0, k1,
                     rng: str = "philox"):
     """Golden engine: (E[X], E[X^2]) with X = (S_T - K)^+, K = S_0, as

@@ -166,17 +166,45 @@ def test_chain_cuda_refuses_bad_input(x, K, msg):
 
 def test_bf16_probe_plain_path_and_keys():
     """collect() over the probe's measure on the CPU at a tiny K: the
-    JAX script's keys, each ratio the bf16/f32 ratio of the Gelops."""
-    out = bf16_probe.collect(functools.partial(
-        bf16_probe.measure, device=torch.device("cpu"), K=2, reps=1), 512)
+    JAX script's keys, each ratio the bf16/f32 ratio of the unrounded
+    rates."""
+    rates = {}
+
+    def measure(dtype, rows, with_sqrt, rsqrt):
+        elops, dt = bf16_probe.measure(dtype, rows, with_sqrt, rsqrt,
+                                       device=torch.device("cpu"), K=2,
+                                       reps=1)
+        rates[dtype, "rsqrt" if rsqrt else "sqrt" if with_sqrt
+              else "alu"] = elops
+        return elops, dt
+    out = bf16_probe.collect(measure, 512)
     for name in ("f32", "bf16"):
         for tag in ("alu", "sqrt", "rsqrt"):
             assert out[f"{name}_{tag}_Gelops"] >= 0
             assert out[f"{name}_{tag}_ms"] > 0
     for tag in ("alu", "sqrt", "rsqrt"):
         assert out[f"ratio_{tag}"] == round(
-            out[f"bf16_{tag}_Gelops"] / out[f"f32_{tag}_Gelops"], 3)
+            rates["bf16", tag] / rates["f32", tag], 3)
     assert len(out) == 15
+
+
+def test_bf16_probe_ratio_from_rates_that_round_to_zero(monkeypatch):
+    """A slow host's rates round to 0.0 Gelops; each ratio still comes
+    from the unrounded rates (a stubbed timer: float32 runs take 1e9 ms,
+    bf16 runs 2.5e8), and a float32 rate of 0 leaves its ratio out."""
+    def timer(fn, device, reps):
+        y = fn()
+        return y, 1e9 if y.dtype == torch.float32 else 2.5e8
+    monkeypatch.setattr(bf16_probe, "timed_blocked", timer)
+    out = bf16_probe.collect(functools.partial(
+        bf16_probe.measure, device=torch.device("cpu"), K=2, reps=1), 128)
+    for tag in ("alu", "sqrt", "rsqrt"):
+        assert out[f"f32_{tag}_Gelops"] == out[f"bf16_{tag}_Gelops"] == 0.0
+        assert out[f"ratio_{tag}"] == 8.0   # twice the rows, 4x the rate
+    out = bf16_probe.collect(lambda dtype, rows, ws, rs: (
+        (0.0 if dtype == "f32" else 1e9), 1e-3))
+    assert not any(k.startswith("ratio_") for k in out)
+    assert out["f32_alu_Gelops"] == 0.0 and out["bf16_alu_Gelops"] == 1.0
 
 
 def test_bf16_probe_reports_a_refused_variant_as_error():

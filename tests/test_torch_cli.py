@@ -84,12 +84,10 @@ def test_defaults_match_nmch_tpu():
     (["--method", "em", "--rng", "xorwow", "--engine", "cuda"],
      "requires engine='scan'"),
     (["--method", "em", "--rng", "tpu"], "does not support"),
-    (["--method", "em", "--greeks"], "slice 7"),
     (["--rng", "device", "--engine", "scan"], "requires engine='cuda'"),
     (["--rng", "xorwow", "--rot", "4"], "no rot/antithetic"),
     (["--antithetic", "--rot", "1"], "contradicts rot=1"),
     (["--method", "em", "--engine", "qmc"], "FE-only"),
-    (["--greeks"], "slice 7"),
     (["--engine", "pallas"], "invalid choice"),
     (["--method", "em", "--rng", "device"], "does not support"),
     (["--rng", "tpu"], "use rng='device'"),
@@ -100,6 +98,43 @@ def test_unported_options_are_parser_errors(argv, match, capsys):
         cli_run([*argv, "--device", "cpu", *SMALL])
     assert e.value.code == 2
     assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("method", ["fe", "em"])
+def test_greeks_keys_and_labels_match_nmch_tpu(method, capsys):
+    """--greeks, as nmch_tpu prints it: the JSON record's "greeks" keys
+    (no "price"), in its order, and the stats line's label and d/d keys;
+    FE values at the golden's tolerance (tests/test_torch_greeks.py)."""
+    argv = ["--method", method, "--greeks", "--engine", "scan",
+            *(SMALL if method == "fe" else SMALL_EM)]
+    got = _json_run(cli_run, [*argv, "--json", "--device", "cpu"], capsys)
+    want = _json_run(jax_cli_run, [*argv, "--json"], capsys)
+    assert set(got) == set(want) and "price" not in got["greeks"]
+    assert list(got["greeks"]) == list(want["greeks"])
+    assert len(got["greeks"]) == 8
+    if method == "fe":
+        for k, v in want["greeks"].items():
+            assert got["greeks"][k] == pytest.approx(v, rel=1e-4, abs=4e-5)
+
+    def label_and_keys(fn, extra):
+        assert fn([*argv, *extra]) == 0
+        line = capsys.readouterr().out.strip().splitlines()[-1]
+        label, values = line.split(": ", 1)
+        return label, [v.split("=")[0] for v in values.split(", ")]
+    assert label_and_keys(cli_run, ["--device", "cpu", "--no-warmup"]) == \
+        label_and_keys(jax_cli_run, ["--no-warmup"])
+
+
+def test_greeks_without_a_counter_rng(capsys):
+    """FE with a stateful rng notes and skips the Greeks, EM raises
+    greeks()'s ValueError, as nmch_tpu's CLI does."""
+    for fn, extra in ((cli_run, ["--device", "cpu"]), (jax_cli_run, [])):
+        rec = _json_run(fn, ["--greeks", "--json", "--rng", "xorwow",
+                             "--engine", "scan", *SMALL, *extra], capsys)
+        assert "greeks" not in rec
+        with pytest.raises(ValueError, match="counter rng"):
+            fn(["--method", "em", "--greeks", "--rng", "xorwow", *SMALL_EM,
+                *extra])
 
 
 @pytest.mark.parametrize("extra", [
@@ -148,7 +183,11 @@ def test_package_and_cli_import_no_jax():
             "nmch_tpu_torch.analysis.heatmap, nmch_tpu_torch.rng.sobol, "
             "nmch_tpu_torch.ops.fe_qmc, nmch_tpu_torch.ops.fe_qmc_cuda, "
             "nmch_tpu_torch.rng.threefry, nmch_tpu_torch.rng.device, "
-            "nmch_tpu_torch.ops.em_schedule; "
+            "nmch_tpu_torch.ops.em_schedule, nmch_tpu_torch.ops.greeks, "
+            "nmch_tpu_torch.ops.fe_greeks, nmch_tpu_torch.ops.fe_greeks_cuda, "
+            "nmch_tpu_torch.ops.em_greeks, nmch_tpu_torch.ops.em_lrm, "
+            "nmch_tpu_torch.ops.em_lrm_cuda, "
+            "nmch_tpu_torch.benchmarks.lrm_vs_fd; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'nmch_tpu' not in sys.modules, 'nmch_tpu imported'")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

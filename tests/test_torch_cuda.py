@@ -424,3 +424,97 @@ def test_fused_qmc_kernel_matches_plain(dev, precision, N, matrix):
     p = torch.stack(fe_qmc.qmc_payoff_sums_fused_plain(
         pv, z1, z2, A, 8, precision=precision))
     torch.testing.assert_close(k, p, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("rng", ["philox", "threefry", "threefry4"])
+@pytest.mark.parametrize("fix_strike", [False, True])
+def test_fe_greeks_kernel_matches_plain(dev, rng, fix_strike):
+    """G1 (csrc/fe_greeks.cu) against fe_greeks_plain on the card at an odd
+    N: every path's payoff and 8 tangents bitwise, the float64 means at
+    rel 1e-6, bitwise repeats, the rng's counter rising."""
+    from nmch_tpu_torch.ops.fe_greeks import fe_greeks_plain
+    from nmch_tpu_torch.ops.fe_greeks_cuda import fe_greeks_cuda, \
+        variant_name as g1_name
+    pv = HestonParams().as_tensor("cpu")
+    kw = dict(N=13, n_paths=1 << 14, rng=rng, fix_strike=fix_strike)
+    name = g1_name(rng)
+    before = fe_greeks_cuda.variant_launches.get(name, 0)
+    kp, kg, kt = fe_greeks_cuda(pv, (1234, 0), 3, 1 << 14, device=dev,
+                                per_path=True, **kw)
+    again = fe_greeks_cuda(pv, (1234, 0), 3, 1 << 14, device=dev, **kw)
+    assert fe_greeks_cuda.variant_launches[name] == before + 2
+    assert torch.equal(kp, again[0]) and torch.equal(kg, again[1])
+    pp, pg, pt = fe_greeks_plain(pv, (1234, 0), 3, 1 << 14, device=dev,
+                                 per_path=True, **kw)
+    assert torch.equal(kt.view(torch.int32), pt.view(torch.int32))
+    torch.testing.assert_close(torch.cat([kp.reshape(1), kg]),
+                               torch.cat([pp.reshape(1), pg]), rtol=1e-6,
+                               atol=0)
+
+
+@pytest.mark.parametrize("rng", ["philox", "threefry4"])
+@pytest.mark.parametrize("cut", [128.0, 4000.0])
+def test_em_law_build_matches_path_law(dev, rng, cut):
+    """K2's law build: every path's (v_T, vI) bitwise path_law_from_consts
+    on the card (N=100: the step loops at cut 128, the round schedule at
+    4000), its moments bitwise the conditional build's."""
+    from nmch_tpu_torch.ops.em import em_consts, path_law_from_consts
+    from nmch_tpu_torch.ops.em_cuda import em_law_cuda, law_variant_name
+    pv = HestonParams().as_tensor("cpu")
+    kw = dict(N=100, n_paths=1 << 12, device=dev, rng=rng, poisson_cut=cut)
+    before = em_law_cuda.variant_launches.get(law_variant_name(rng), 0)
+    m, m2, v_T, vI = em_law_cuda(pv, (1234, 0), 2, 0, **kw)
+    assert em_law_cuda.variant_launches[law_variant_name(rng)] == before + 1
+    c = em_moments_cuda(pv, (1234, 0), 2, 0, conditional=True, **kw)
+    assert torch.equal(m, c[0]) and torch.equal(m2, c[1])
+    path = path_index_grid(1 << 12, 0, dev)
+    _, _, pT, pI, _ = path_law_from_consts(em_consts(pv, 100, cut), 100,
+                                           path, torch.zeros_like(path), 2,
+                                           1234, 0, rng)
+    assert torch.equal(v_T, pT) and torch.equal(vI, pI)
+
+
+@pytest.mark.parametrize("rng", ["philox", "threefry4"])
+@pytest.mark.parametrize("params", [HestonParams(),
+                                    HestonParams(k=0.5, theta=0.01,
+                                                 sigma=1.0)])
+def test_em_lrm_kernel_matches_plain(dev, rng, params):
+    """K2-LRM (csrc/em_lrm.cu) against lrm_plain on the card: v_T, vI_rest
+    and the five scores of every path bitwise and finite (also where Gamma
+    draws underflow), the rng's counter rising."""
+    from nmch_tpu_torch.ops.em_lrm import lrm_plain
+    from nmch_tpu_torch.ops.em_lrm_cuda import em_lrm_scores_cuda, \
+        variant_name as lrm_name
+    pv = params.as_tensor("cpu")
+    before = em_lrm_scores_cuda.variant_launches.get(lrm_name(rng), 0)
+    k = em_lrm_scores_cuda(pv, (1234, 0), 2, 0, N=16, n_paths=1 << 12,
+                           device=dev, rng=rng)
+    assert em_lrm_scores_cuda.variant_launches[lrm_name(rng)] == before + 1
+    p = lrm_plain(pv, (1234, 0), 2, 0, N=16, n_paths=1 << 12, rng=rng,
+                  device=dev)
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    assert bool(torch.isfinite(k).all())
+
+
+def test_greeks_methods_launch_their_kernels(dev):
+    """On the card NMCH_FE.greeks launches G1, NMCH_EM.greeks the law
+    build, ten K2 conditional launches with fd=True and K2-LRM with
+    lrm=True; no plain version runs."""
+    from nmch_tpu_torch.ops.em_cuda import em_law_cuda
+    from nmch_tpu_torch.ops.em_lrm_cuda import em_lrm_scores_cuda
+    from nmch_tpu_torch.ops.fe_greeks_cuda import fe_greeks_cuda
+    cfg = SimConfig(NTPB=128, NB=8, N=16)
+    g1 = fe_greeks_cuda.launches
+    m = NMCH_FE(cfg, HestonParams())
+    m.init(3)
+    assert len(m.greeks()) == 9 and fe_greeks_cuda.launches == g1 + 1
+    e = NMCH_EM(cfg, HestonParams())
+    e.init(3)
+    law = em_law_cuda.variant_launches.get("em_philox_cond_law", 0)
+    cond = em_moments_cuda.variant_launches.get("em_philox_cond", 0)
+    lrm = em_lrm_scores_cuda.launches
+    assert len(e.greeks(fd=True)) == 9
+    assert len(e.greeks(lrm=True)) == 9
+    assert em_law_cuda.variant_launches["em_philox_cond_law"] == law + 2
+    assert em_moments_cuda.variant_launches["em_philox_cond"] == cond + 10
+    assert em_lrm_scores_cuda.launches == lrm + 1

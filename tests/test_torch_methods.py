@@ -384,9 +384,20 @@ def test_em_poisson_cut_default_is_the_method_layers_128():
     assert prices[0] == prices[1] != prices[2]
 
 
-def test_em_greeks_name_their_slice():
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        _em().greeks()
+def test_em_greeks_keys_match_nmch_tpus():
+    """NMCH_EM.greeks's keys, in nmch_tpu's order, for the pathwise and
+    the LRM estimators (fd: tests/test_torch_cli.py), and its checks'
+    words."""
+    cfg = SimConfig(NTPB=128, NB=1, N=4)
+    m = NMCH_EM(cfg, HestonParams(), engine="cuda", device="cpu")
+    j = nmch_tpu.NMCH_EM(nmch_tpu.SimConfig(NTPB=128, NB=1, N=4),
+                         nmch_tpu.HestonParams(), engine="scan")
+    m.init(5)
+    j.init(5)
+    for kw in ({}, {"lrm": True}):
+        assert list(m.greeks(**kw)) == list(j.greeks(**kw))
+    with pytest.raises(ValueError, match="not both"):
+        m.greeks(fd=True, lrm=True)
 
 
 def test_em_cuda_engine_on_cpu_equals_scan_engine():
