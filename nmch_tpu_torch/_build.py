@@ -131,7 +131,7 @@ def load_library() -> tuple[ctypes.CDLL, BuildInfo]:
         + [ctypes.c_void_p] * 5)
     lib.nmch_fe_stateful_moments.restype = ctypes.c_int
     lib.nmch_stateful_init.argtypes = (
-        [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_uint32] * 7
+        [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_uint32] * 7
         + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p])
     lib.nmch_stateful_init.restype = ctypes.c_int
     lib.nmch_stateful_advance.argtypes = (
@@ -166,7 +166,8 @@ def load_library() -> tuple[ctypes.CDLL, BuildInfo]:
     lib.nmch_fe_greeks.restype = ctypes.c_int
     lib.nmch_em_lrm.argtypes = (
         [f32p] * 2 + [ctypes.c_uint32] * 4 + [ctypes.c_int64] * 2
-        + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int64]
+        + [ctypes.c_void_p] * 2)
     lib.nmch_em_lrm.restype = ctypes.c_int
     lib.nmch_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nmch_cuda_error_string.restype = ctypes.c_char_p

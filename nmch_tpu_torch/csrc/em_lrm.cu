@@ -1,8 +1,9 @@
 // K2-LRM: the score-function (likelihood-ratio) variant of the EM path kernel
-// on Hopper (sm_90a). One thread per path runs K2's step loops themselves
-// (em_path.cuh::em_path_steps: the Poisson and Marsaglia-Tsang samplers on
-// the path's counter stream, the same draws as K2 under either schedule),
-// and the loops' per-step report (LrmReport) adds the scores of the step's
+// on Hopper (sm_90a). One thread per path runs K2's own path code
+// (em_path.cuh: the Poisson and Marsaglia-Tsang samplers on the path's
+// counter stream), on the schedule K2 would take for these constants
+// (em_rounds_pay: the step loops or the round schedule, one build each), and
+// the schedule's per-step report (LrmReport) adds the scores of the step's
 // joint density of (Poisson index n, next variance v') with respect to (T,
 // v_0, k, theta, sigma):
 //
@@ -21,11 +22,17 @@
 // has no Pallas kernel for it. The floors 1e-37 on lam and g keep a lane
 // whose Gamma draw underflowed (small shapes d << 1) finite, as there.
 //
-// What bounds it on an H100: instruction issue, as K2's step loops: the
-// samplers' rounds, plus per step a digamma (at most 6 reciprocals of its
-// recurrence, a logf and the asymptotic series), a logf, two divisions and
-// the five scores (~100 FP32 instructions). The schedule is the step
-// loops: the round schedule moves no draw, so the scores are the same.
+// What bounds it on an H100: instruction issue, as K2: the samplers' rounds,
+// plus per step the report: a logf, two divisions, the five scores and
+// digamma(d + n). Within a launch digamma(d + n) depends on the integer n
+// alone, so a first kernel tabulates it for n < n_psi (lrm_psi_table, the
+// same device function) and the report reads the table through L1; only
+// n >= n_psi calls digamma (at most 6 reciprocals of its recurrence, a logf
+// and the series), kept out of line so that the sampler loop stays small.
+// At the strict cut (4000) most steps leave the normal branch and the round
+// schedule keeps ~0.9 of a warp's lanes drawing against ~0.5 on the step
+// loops; either schedule gives every path the same draws, so the scores are
+// the same.
 //
 // Numerics: built with -fmad=false, every float operation is the plain
 // version's (ops/em_lrm.py::lrm_scores_plain) in its order, with libdevice
@@ -61,7 +68,7 @@ struct LrmJac {
 };
 
 // psi(z), z > 0 (ops/em_lrm.py::digamma, operation for operation)
-__device__ __forceinline__ float digamma(float z) {
+__device__ __noinline__ float digamma(float z) {
   float acc = 0.0f;
 #pragma unroll
   for (int i = 0; i < kDgSteps; ++i) {
@@ -78,19 +85,30 @@ __device__ __forceinline__ float digamma(float z) {
   return nmch::nm_log(z) - 0.5f * zi - series - acc;
 }
 
-// K2's step loops report each step here: the scores, summed per path, and
+// psi[n] = digamma(d + n), n < n_psi: the values the report would compute
+// for alpha = d + n (the same float sum and function, so the same bits).
+__global__ void __launch_bounds__(kPathThreads)
+    lrm_psi_table(float d, int n_psi, float* __restrict__ psi) {
+  const int n = blockIdx.x * kPathThreads + threadIdx.x;
+  if (n < n_psi) psi[n] = digamma(d + (float)n);
+}
+
+// K2's schedules report each step here: the scores, summed per path, and
 // at the end v_T and vI_rest.
 struct LrmReport {
   static constexpr bool kPerStep = true;
   const LrmJac& J;
+  const float* psi;  // lrm_psi_table
+  float n_psi;
   float sc[kLrm] = {};
   float v_T = 0.0f, vI_rest = 0.0f;
 
   __device__ void step(const EmArgs& a, int i, float Vt, float lam,
                        float n_p, float alpha, float g) {
     const float pois_fac = n_p / fmaxf(lam, kLamFloor) - 1.0f;
-    const float gam_d =
-        nmch::nm_log(fmaxf(g, kGammaLogFloor)) - digamma(alpha);
+    const float psi_alpha =
+        n_p < n_psi ? __ldg(psi + (int)n_p) : digamma(alpha);
+    const float gam_d = nmch::nm_log(fmaxf(g, kGammaLogFloor)) - psi_alpha;
     const float gam_v = (g - alpha) / a.vfac;
 #pragma unroll
     for (int q = 0; q < kLrm; ++q) {
@@ -107,14 +125,19 @@ struct LrmReport {
   }
 };
 
-template <int R>
+// kRounds: the round schedule, else the step loops (one build each, as K2)
+template <int R, bool kRounds>
 __global__ void __launch_bounds__(kPathThreads)
-    em_lrm_paths(EmArgs a, LrmJac J, float* __restrict__ out,
-                 int64_t n_paths) {
+    em_lrm_paths(EmArgs a, LrmJac J, const float* __restrict__ psi,
+                 float n_psi, float* __restrict__ out, int64_t n_paths) {
   const uint32_t idx = blockIdx.x * kPathThreads + threadIdx.x;
   uint32_t ctr;
-  LrmReport rep{J};
-  nmch::em_path_steps<R, true>(a, a.base_path + idx, ctr, rep);
+  LrmReport rep{J, psi, n_psi};
+  if constexpr (kRounds) {
+    nmch::em_path_rounds<R, true>(a, a.base_path + idx, ctr, rep);
+  } else {
+    nmch::em_path_steps<R, true>(a, a.base_path + idx, ctr, rep);
+  }
   out[idx] = rep.v_T;
   out[n_paths + idx] = rep.vI_rest;
 #pragma unroll
@@ -122,10 +145,17 @@ __global__ void __launch_bounds__(kPathThreads)
 }
 
 template <int R>
-cudaError_t launch_lrm(const EmArgs& a, const LrmJac& J, int64_t n_paths,
+cudaError_t launch_lrm(const EmArgs& a, const LrmJac& J, bool rounds,
+                       const float* psi, int n_psi, int64_t n_paths,
                        float* out, cudaStream_t st) {
-  em_lrm_paths<R><<<(unsigned)(n_paths / kPathThreads), kPathThreads, 0,
-                    st>>>(a, J, out, n_paths);
+  const unsigned g = (unsigned)(n_paths / kPathThreads);
+  if (rounds) {
+    em_lrm_paths<R, true><<<g, kPathThreads, 0, st>>>(a, J, psi, (float)n_psi,
+                                                       out, n_paths);
+  } else {
+    em_lrm_paths<R, false><<<g, kPathThreads, 0, st>>>(
+        a, J, psi, (float)n_psi, out, n_paths);
+  }
   return cudaGetLastError();
 }
 
@@ -136,14 +166,20 @@ cudaError_t launch_lrm(const EmArgs& a, const LrmJac& J, int64_t n_paths,
 // the five scores sum_t d log p_t / d(T, v_0, k, theta, sigma). consts: the
 // 13 float32 values of ops/em.py::EmConsts and jac: float32[3 * 5]
 // (row-major d(lam_c, d, vfac) / d(T, v_0, k, theta, sigma)), both on the
-// host. rng: 0 = philox, 1 = threefry4. Launches on `stream` and does not
-// synchronise. Returns the launch's cudaError_t (0 on success); nothing is
-// launched for invalid arguments.
+// host. rng: 0 = philox, 1 = threefry4. schedule: -1 the one K2 takes for
+// these constants (em_rounds_pay), 0 the step loops, 1 the round schedule.
+// psi: float32[n_psi] scratch on the device, 0 <= n_psi <= 2^24 (the
+// digamma table; 0 computes every digamma in the report). Launches on
+// `stream` and does not synchronise. Returns the launches' cudaError_t (0
+// on success); nothing is launched for invalid arguments.
 extern "C" int nmch_em_lrm(const float* consts, const float* jac, uint32_t k0,
                            uint32_t k1, uint32_t epoch, uint32_t base_path,
-                           int64_t N, int64_t n_paths, int rng, float* out,
+                           int64_t N, int64_t n_paths, int rng, int schedule,
+                           float* psi, int64_t n_psi, float* out,
                            void* stream) {
-  if (nmch::em_bad_sizes(N, n_paths) || out == nullptr) {
+  if (nmch::em_bad_sizes(N, n_paths) || out == nullptr || schedule < -1 ||
+      schedule > 1 || n_psi < 0 || n_psi > (int64_t(1) << 24) ||
+      (n_psi > 0 && psi == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const EmArgs a = nmch::em_args(consts, k0, k1, epoch, base_path, N);
@@ -151,13 +187,21 @@ extern "C" int nmch_em_lrm(const float* consts, const float* jac, uint32_t k0,
   for (int i = 0; i < 3; ++i) {
     for (int q = 0; q < kLrm; ++q) J.j[i][q] = jac[kLrm * i + q];
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rng) {
-    case nmch::kPhilox:
-      return (int)launch_lrm<nmch::kPhilox>(a, J, n_paths, out, st);
-    case nmch::kThreefry4:
-      return (int)launch_lrm<nmch::kThreefry4>(a, J, n_paths, out, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (rng != nmch::kPhilox && rng != nmch::kThreefry4) {
+    return (int)cudaErrorInvalidValue;
   }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_psi > 0) {
+    lrm_psi_table<<<(unsigned)((n_psi + kPathThreads - 1) / kPathThreads),
+                    kPathThreads, 0, st>>>(a.d, (int)n_psi, psi);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const bool rounds = schedule < 0 ? nmch::em_rounds_pay(a) : schedule == 1;
+  return (int)(rng == nmch::kPhilox
+                   ? launch_lrm<nmch::kPhilox>(a, J, rounds, psi, (int)n_psi,
+                                               n_paths, out, st)
+                   : launch_lrm<nmch::kThreefry4>(a, J, rounds, psi,
+                                                  (int)n_psi, n_paths, out,
+                                                  st));
 }

@@ -302,12 +302,13 @@ __device__ float gamma_ms(float alpha0, uint32_t& ctr, const EmArgs& a,
   return alpha * C;
 }
 
-// What a path reports beside its payoff. em_path_steps calls step() after
-// each step's two draws (the step i, v_t, lam = lam_const v_t, the Poisson
-// index n, the Gamma shape alpha = d + n and the Gamma draw g) and end()
-// with v_T and the running sum of (v_t + v_{t+dt}); em_path_rounds calls
-// end() only (kPerStep false). The pricing builds report nothing: NoReport's
-// empty calls compile away, so those builds keep their registers.
+// What a path reports beside its payoff. Both schedules call end() with v_T
+// and the running sum of (v_t + v_{t+dt}); a report with kPerStep also gets
+// step() once a step, in step order, after the step's Gamma draw (the step
+// i, v_t, lam = lam_const v_t, the Poisson index n, the Gamma shape alpha =
+// d + n and the Gamma draw g). The pricing builds report nothing: NoReport's
+// empty calls compile away, and the round schedule keeps n for step() only
+// where kPerStep asks for it, so those builds keep their registers.
 struct NoReport {
   static constexpr bool kPerStep = false;
   __device__ void step(const EmArgs&, int, float, float, float, float,
@@ -373,7 +374,8 @@ enum EmStage : int {
 //   Knuth     q0 lam, q1 target = e^-lam, q2 the product t, q3 its count
 //   PTRS      q0 lam, q1 b, q2 a, q3 1/alpha, q4 v_r, q5 ln lam
 //   normal    q0 lam, q1 sqrt(lam)
-//   Gamma     q0 alpha0, q1 d, q2 1/sqrt(9 d), q3 the boost factor C
+//   Gamma     q0 alpha0, q1 d, q2 1/sqrt(9 d), q3 the boost factor C,
+//             q4 the step's Poisson index (for a per-step report)
 //   terminal  q0 m, q1 sig_eff
 struct EmLane {
   float Vt, vI;  // v_t and the running sum of (v_t + v_{t+dt})
@@ -427,12 +429,13 @@ __device__ __forceinline__ void begin_step(EmLane& s, const EmArgs& a,
   }
 }
 
-// Report: as em_path_steps, end() only.
+// Report: as em_path_steps; a lane reports its steps in order, each when
+// its Gamma phase settles the draw (accepted, or the kGammaMaxRounds
+// fallback).
 template <int R, bool kConditional, class Report = NoReport>
 __device__ float em_path_rounds(const EmArgs& a, uint32_t path, uint32_t& ctr,
                                 Report&& rep = Report()) {
-  static_assert(!std::remove_reference_t<Report>::kPerStep,
-                "a per-step report runs on the step loops");
+  constexpr bool kPerStep = std::remove_reference_t<Report>::kPerStep;
   constexpr unsigned kWarpAll = 0xFFFFFFFFu;
   EmLane s;
   s.Vt = a.v_0;
@@ -477,6 +480,10 @@ __device__ float em_path_rounds(const EmArgs& a, uint32_t path, uint32_t& ctr,
         gam = (s.q0 + (s.q0 < 1.0f ? 1.0f : 0.0f)) * s.q3;  // alpha * C
       } else {
         continue;
+      }
+      if constexpr (kPerStep) {
+        // em_path_steps' report: lam is the same float product
+        rep.step(a, s.i, s.Vt, a.lam_const * s.Vt, s.q4, s.q0, gam);
       }
       const float v_next = a.vfac * gam;
       s.vI = s.vI + (s.Vt + v_next);  // dt/2 applied once after the loop
@@ -552,6 +559,7 @@ __device__ float em_path_rounds(const EmArgs& a, uint32_t path, uint32_t& ctr,
     s.q1 = d;
     s.q2 = nm_rsqrt(9.0f * d);
     s.q3 = 1.0f;
+    if constexpr (kPerStep) s.q4 = n_p;
     s.stage = kStageGamma;
     s.rnd = 0;
   }

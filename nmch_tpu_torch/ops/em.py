@@ -80,6 +80,16 @@ def em_consts(params, N: int, poisson_cut: float | None = None) -> EmConsts:
     return EmConsts(*(float(v) for v in row))
 
 
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """e^x of float32 x, rounded once from float64 (differentiable)."""
+    return torch.exp(x.double()).float()
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """ln x of float32 x, rounded once from float64."""
+    return torch.log(x.double()).float()
+
+
 def em_consts_table(params_matrix, N: int,
                     poisson_cut: float | None = None) -> torch.Tensor:
     """float32 (P, 13) on the CPU: row p holds the ``EmConsts`` of
@@ -87,20 +97,20 @@ def em_consts_table(params_matrix, N: int,
     theta, sigma) rows.
 
     The arithmetic runs on the (P,) columns (IEEE float32 operations, so
-    each element rounds as a 0-dim one does).  The two transcendentals go
-    element by element: torch's CPU exp and log may round an element of a
-    vector (SIMD body) differently from a 0-dim tensor (scalar path), and
-    a point's constants must not depend on the points beside it."""
+    each element rounds as a 0-dim one does).  The two transcendentals are
+    taken in float64 and rounded once (``exp_f32``, ``log_f32``): the
+    correctly rounded float32, which no host's float32 libm or SIMD path
+    can move."""
     p = params_matrix.detach().to("cpu", torch.float32)
     T, S_0, v_0, r, k, rho, theta, sigma = p.unbind(1)
     dt = T / N
-    exp_kdt = torch.stack([torch.exp(x) for x in -k * dt])
+    exp_kdt = exp_f32(-k * dt)
     sig2 = sigma * sigma
     d = 2.0 * k * theta / sig2
     one_m = 1.0 - exp_kdt
     lam_const = 2.0 * k * exp_kdt / (sig2 * one_m)
     vfac = sig2 * one_m / (2.0 * k)
-    log_S0 = torch.stack([torch.log(x) for x in S_0])
+    log_S0 = log_f32(S_0)
     cut = float(np.float32(POISSON_LARGE if poisson_cut is None
                            else poisson_cut))
     cols = (v_0, S_0, lam_const, d, vfac, dt * 0.5, log_S0, log_S0 + r * T,

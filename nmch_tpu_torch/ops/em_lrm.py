@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..rng.normal import sqrt_f32
-from .em import EmConsts, conditional_payoff_of_strike, em_consts
+from .em import EmConsts, conditional_payoff_of_strike, em_consts, exp_f32
 from .em_greeks import check_counter_rng
 from .fe import mean_f32, path_index_grid
 from .sampling import gamma_ms_from_stream, poisson_from_stream
@@ -78,7 +78,7 @@ def _transition_consts(p5, N: int):
     (``torch.func.jacfwd`` gives J)."""
     T, v_0, k, theta, sigma = p5.unbind()
     dt = T / N
-    e = torch.exp(-k * dt)
+    e = exp_f32(-k * dt)
     sig2 = sigma * sigma
     one_m = 1.0 - e
     lam_c = 2.0 * k * e / (sig2 * one_m)
@@ -138,6 +138,39 @@ def lrm_scores_plain(c: EmConsts, J, N: int, path_idx, epoch, k0, k1,
         vI = vI + (Vt + v_next)   # K2's order (em_path.cuh)
         Vt = v_next
     return torch.stack([Vt, vI - c.v_0, *sc])
+
+
+class LrmSteps:
+    """K2-LRM's per-step report (``csrc/em_lrm.cu::LrmReport``) on flat
+    lanes, for ``ops/em_schedule.py::emulate``: each step's scores, as
+    ``lrm_scores_plain`` forms them, added where a lane's step settles, in
+    whatever order the schedule runs the lanes.  After the run ``out()``
+    is float32 (7, n): v_T, vI_rest and the five scores."""
+
+    def __init__(self, c: EmConsts, J, n: int):
+        self.c = c
+        self.Jd = [[J[i, q] for q in range(5)] for i in range(3)]
+        self.vfac = torch.tensor(c.vfac)
+        self.sc = [torch.zeros(n) for _ in range(5)]
+        self.v_T = self.vI_rest = None
+
+    def step(self, mask, i, Vt, lam, n, alpha, g):
+        Jd, c = self.Jd, self.c
+        pois_fac = n / torch.clamp_min(lam, _FLOOR) - 1.0
+        gam_d = torch.log(torch.clamp_min(g, _FLOOR)) - digamma(alpha)
+        gam_v = (g - alpha) / self.vfac
+        for q in range(5):
+            s = pois_fac * (Vt * Jd[0][q])
+            if q == 1:
+                s = torch.where(i == 0, s + pois_fac * c.lam_const, s)
+            s = s + Jd[1][q] * gam_d + Jd[2][q] * gam_v
+            self.sc[q] = torch.where(mask, self.sc[q] + s, self.sc[q])
+
+    def end(self, Vt, vI):
+        self.v_T, self.vI_rest = Vt, vI - self.c.v_0
+
+    def out(self) -> torch.Tensor:
+        return torch.stack([self.v_T, self.vI_rest, *self.sc])
 
 
 def lrm_from_scores(params, N: int, v_T, vI_rest, scores):

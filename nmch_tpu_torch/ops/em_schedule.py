@@ -16,9 +16,11 @@ the normal branch, PTRS), then its MT rounds.
 
 Every path's final counter and payoff are those of ``ops/em.py::
 em_payoffs`` on either schedule (``tests/test_torch_em_rounds.py`` holds
-them bitwise).  A warp's iterations are the block draws it executes, so
-the active-lane share, blocks drawn / (32 x the warps' iterations), is
-the share of lane-slots of those draws that do work.
+them bitwise).  A per-step report (K2-LRM's scores, ``ops/em_lrm.py::
+LrmSteps``) sees each lane's steps in order on either schedule, as the
+kernels' ``Report::step`` does.  A warp's iterations are the block draws
+it executes, so the active-lane share, blocks drawn / (32 x the warps'
+iterations), is the share of lane-slots of those draws that do work.
 
     python -m nmch_tpu_torch.ops.em_schedule [--paths 4096] [--sweep-paths 128]
 
@@ -76,14 +78,19 @@ class _Words:
 
 
 def emulate(c: EmConsts, N: int, path, epoch, k0: int, k1: int, rng: str,
-            conditional: bool, rounds=True):
+            conditional: bool, rounds=True, report=None):
     """The kernel's loop for the flat int64 path ids ``path`` (a multiple
     of 32 of them, each 32 consecutive ones a warp).  ``c`` holds the loop
     constants (floats, or (n,) tensors: one point per warp), ``epoch`` an
     int or an (n,) tensor, ``rounds`` the schedule (em_path_rounds when
     true, em_path_steps when false; a bool or an (n,) bool tensor, one
-    value per warp).  Returns (payoff float32, final counter int64, each
-    warp's iterations, each lane's iterations spent waiting)."""
+    value per warp).  ``report``: None, or an object whose ``step(mask, i,
+    v_t, lam, n, alpha, g)`` is called where a lane's Gamma draw settles
+    (the lanes in ``mask``; the step, v_t, lam_const v_t, the Poisson
+    index, d + n and the draw) and whose ``end(v_T, vI_sum)`` is called
+    once at the end (em_path.cuh's per-step report).  Returns (payoff
+    float32, final counter int64, each warp's iterations, each lane's
+    iterations spent waiting)."""
     n = path.numel()
     words = _Words(make_stream_draw4(rng, epoch, path,
                                      torch.zeros_like(path), k0, k1), n)
@@ -232,10 +239,18 @@ def emulate(c: EmConsts, N: int, path, epoch, k0: int, k1: int, rng: str,
         d = alpha - THIRD
         put(pdone, q0=alpha0, q1=d, q2=torch.rsqrt(9.0 * d), q3=zf + 1.0,
             stage=GAMMA, rnd=zi)
+        if report is not None:
+            # the Poisson index waits in q4 for the step's report
+            put(pdone, q4=val)
+            if bool(gdone.any()):
+                report.step(gdone, s["i"], s["Vt"], c.lam_const * s["Vt"],
+                            s["q4"], s["q0"], val)
         v_next = c.vfac * val
         put(gdone, vI=s["vI"] + (s["Vt"] + v_next), Vt=v_next,
             i=s["i"] + 1)
         begin_step(gdone)
+    if report is not None:
+        report.end(s["Vt"], s["vI"])
     return s["payoff"], s["ctr"], warp_iters, waits
 
 

@@ -93,6 +93,109 @@ def fe_stateful_state(rng: str, seed: int, n_paths: int, epoch: int,
     return torch.stack(stream_state_init(rng, seed, pidx, epoch))
 
 
+# the split skip-ahead of the init kernel (csrc/fe_stateful.cu::
+# stateful_init): a warp's 32 paths differ only in their low LANE_BITS path
+# bits, whose jumps (tables EPOCH_BITS .. EPOCH_BITS + LANE_BITS - 1) one
+# combined table per lane applies; every other jump is warp-uniform
+WARP = 32
+LANE_BITS = 5
+EPOCH_BITS = 27      # jump tables [0, 27) select the epoch, [27, 58) path
+
+
+@functools.lru_cache(maxsize=2)
+def init_lane_tables(rng: str) -> np.ndarray:
+    """The 32 combined jump tables of the low path bits: table l is the
+    product of the path jumps 0..4 that lane l's bits select (F^(l 2^67)),
+    in the single tables' u32 layout: XORWOW (32, 5, 32, 5) columns,
+    MRG32k3a (32, 2, 3, 3) J1, J2."""
+    check_family(rng)
+    lanes = range(WARP)
+    if rng == "xorwow":
+        from ..rng.xorwow import N_BITS, _jump_tables, table_bit_matrix
+        mats = table_bit_matrix(_jump_tables()[EPOCH_BITS:
+                                               EPOCH_BITS + LANE_BITS])
+        out = np.zeros((WARP, N_BITS, N_BITS), dtype=np.float32)
+        for lane in lanes:
+            m = np.eye(N_BITS, dtype=np.float32)
+            for k in range(LANE_BITS):
+                if lane >> k & 1:
+                    m = np.remainder(mats[k] @ m, 2.0)   # exact: sums <= 160
+            out[lane] = m
+        # [out bit, in bit] -> columns: word wo of column (wi, b)
+        bits = out.reshape(WARP, 5, 32, 5, 32).transpose(0, 3, 4, 1, 2)
+        return (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)) \
+            .sum(axis=-1).astype(np.uint32)
+    from ..rng.mrg32k3a import M1, M2, _jump_tables, _mat_mul
+    out = np.empty((WARP, 2, 3, 3), dtype=np.uint32)
+    for j, (tabs, m) in enumerate(zip(_jump_tables(), (M1, M2))):
+        for lane in lanes:
+            P = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
+            for k in range(LANE_BITS):
+                if lane >> k & 1:
+                    P = _mat_mul(P, tuple(tuple(int(x) for x in row) for row
+                                          in tabs[EPOCH_BITS + k]), m)
+            out[lane, j] = P
+    return out
+
+
+def fe_stateful_state_split(rng: str, seed: int, n_paths: int, epoch: int,
+                            device="cpu") -> torch.Tensor:
+    """``fe_stateful_state`` as the init kernel computes it: each warp of
+    32 paths takes the warp-uniform jumps (the epoch's bits, its paths'
+    bits 5 and up) on the seed's state once, then each lane its combined
+    table (``init_lane_tables``).  The jumps are powers of one transition,
+    so they commute and the states are fe_stateful_state's bit for bit.
+    n_paths: a positive multiple of 32."""
+    check_family(rng)
+    n_paths = int(n_paths)
+    if n_paths <= 0 or n_paths % WARP:
+        raise ValueError(f"n_paths={n_paths} must be a positive multiple "
+                         f"of {WARP}")
+    epoch = int(epoch)
+    warp_bits = torch.arange(n_paths // WARP, dtype=torch.int64,
+                             device=device)     # path bits 5 and up
+    lane_tabs = init_lane_tables(rng)
+    if rng == "xorwow":
+        from ..rng.xorwow import _jump_bit_matrices, bits_to_words, \
+            gf2_apply, seed_state, table_bit_matrix, words_to_bits
+        base, d0 = seed_state(seed)
+        mats = _jump_bit_matrices(str(device))
+        bits = words_to_bits(torch.tensor(base, dtype=torch.int64,
+                                          device=device).view(5, 1))
+        for m in range(EPOCH_BITS):
+            if epoch >> m & 1:
+                bits = gf2_apply(mats[m], bits)
+        bits = bits.expand(-1, warp_bits.numel())
+        for m in range(EPOCH_BITS + LANE_BITS, mats.shape[0]):
+            on = (warp_bits >> (m - EPOCH_BITS - LANE_BITS) & 1).bool()
+            if bool(on.any()):
+                bits = torch.where(on, gf2_apply(mats[m], bits), bits)
+        lane_mats = torch.from_numpy(table_bit_matrix(lane_tabs)).to(device)
+        bits = torch.remainder(torch.einsum("lij,jw->iwl", lane_mats, bits),
+                               2.0).reshape(bits.shape[0], n_paths)
+        return torch.cat([bits_to_words(bits),
+                          torch.full((1, n_paths), d0, dtype=torch.int64,
+                                     device=device)])
+    from ..rng.mrg32k3a import M1, M2, _jump_tensors, matvec, seed_state
+    J = _jump_tensors(str(device))
+    out = []
+    for j, (b, m) in enumerate(zip(seed_state(seed), (M1, M2))):
+        s = torch.tensor(b, dtype=torch.int64, device=device).view(3, 1)
+        for k in range(EPOCH_BITS):
+            if epoch >> k & 1:
+                s = matvec(J[j][k], s, m)
+        s = s.expand(3, warp_bits.numel())
+        for k in range(EPOCH_BITS + LANE_BITS, J[j].shape[0]):
+            on = (warp_bits >> (k - EPOCH_BITS - LANE_BITS) & 1).bool()
+            if bool(on.any()):
+                s = torch.where(on, matvec(J[j][k], s, m), s)
+        lanes = torch.from_numpy(lane_tabs[:, j].astype(np.int64)).to(device)
+        out.append(torch.stack([matvec(lanes[lane], s, m)
+                                for lane in range(WARP)], dim=-1)
+                   .reshape(3, n_paths))
+    return torch.cat(out)
+
+
 def advance_state(rng: str, state: torch.Tensor, n_steps: int):
     """Every path's state moved n_steps recurrence steps forward: one
     dense jump (a GF(2) product for XORWOW, two modular 3x3 products for

@@ -25,7 +25,7 @@ from .fe import LANES
 from .fe_cuda import call_kernel, check_sizes, check_u32, count_launch
 from .fe_stateful import N_STATE, advance_state, check_family, \
     check_state, fe_moments_stateful_plain, fe_stateful_state, \
-    host_jump_table
+    host_jump_table, init_lane_tables
 
 FAMILIES = ("xorwow", "mrg32k3a")  # the kernels' `rng` argument is the index
 MAX_PATHS = 1 << 31     # the stream layout's path bits (rng/xorwow.py)
@@ -46,17 +46,39 @@ def _table_words(tab) -> torch.Tensor:
                             .view(np.int32).reshape(-1).copy())
 
 
+def xorwow_rows(tab: np.ndarray) -> np.ndarray:
+    """XORWOW column tables (..., 5, 32, 5) [input word wi, input bit b,
+    output word wo] in the row form of the init kernel's shared jumps:
+    (..., 5, 5, 32) [wo, wi, output bit l], bit b of the word set where
+    output bit (wo, l) takes input bit (wi, b)."""
+    tab = np.asarray(tab, dtype=np.uint32)
+    bits = (tab[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    rows = np.moveaxis(bits, (-4, -3, -2, -1), (-3, -1, -4, -2))
+    return (rows.astype(np.uint64) << np.arange(32, dtype=np.uint64)) \
+        .sum(axis=-1).astype(np.uint32)
+
+
+def lane_interleaved(lane_tabs: np.ndarray) -> np.ndarray:
+    """(32, ...) per-lane tables as the init kernel reads them: word k of
+    lane l's table at k * 32 + l."""
+    return np.ascontiguousarray(
+        np.asarray(lane_tabs, dtype=np.uint32).reshape(32, -1).T)
+
+
 @functools.lru_cache(maxsize=4)
-def _init_tables(rng: str, device: str) -> torch.Tensor:
-    """The 58 jump tables of ``rng``'s stream layout on ``device``:
-    XORWOW's (58, 5, 32, 5) columns, MRG32k3a's (58, 2, 3, 3) J1, J2."""
+def _init_tables(rng: str, device: str):
+    """(the 58 jump tables of ``rng``'s stream layout, the 32 combined
+    tables of path bits 0..4 lane-interleaved) on ``device``: XORWOW's
+    (58, 5, 5, 32) rows (``xorwow_rows``), MRG32k3a's (58, 2, 3, 3) J1,
+    J2; ``init_lane_tables``."""
     if rng == "xorwow":
         from ..rng.xorwow import _jump_tables
-        tab = _jump_tables()
+        tab = xorwow_rows(_jump_tables())
     else:
         from ..rng.mrg32k3a import _jump_tables
         tab = np.stack(_jump_tables(), axis=1)
-    return _table_words(tab).to(device)
+    return (_table_words(tab).to(device),
+            _table_words(lane_interleaved(init_lane_tables(rng))).to(device))
 
 
 @functools.lru_cache(maxsize=8)
@@ -126,12 +148,12 @@ def fe_stateful_state_cuda(rng: str, seed: int, n_paths: int, epoch: int,
         return fe_stateful_state(rng, seed, n_paths, epoch, device)
     if device.type != "cuda":
         raise ValueError(f"device {device} is neither cpu nor cuda")
-    tables = _init_tables(rng, str(device))
+    tables, lane_tables = _init_tables(rng, str(device))
     out = torch.empty(N_STATE, n_paths, dtype=torch.int64, device=device)
     name = f"jump_init_{rng}"
     call_kernel("nmch_stateful_init", name, device, FAMILIES.index(rng),
-                tables.data_ptr(), *_seed_words(rng, seed), epoch, n_paths,
-                out.data_ptr())
+                tables.data_ptr(), lane_tables.data_ptr(),
+                *_seed_words(rng, seed), epoch, n_paths, out.data_ptr())
     count_launch(fe_stateful_state_cuda, name)
     return out
 

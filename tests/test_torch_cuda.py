@@ -474,21 +474,23 @@ def test_em_law_build_matches_path_law(dev, rng, cut):
     assert torch.equal(v_T, pT) and torch.equal(vI, pI)
 
 
+@pytest.mark.parametrize("schedule", [None, "steps", "rounds"])
 @pytest.mark.parametrize("rng", ["philox", "threefry4"])
 @pytest.mark.parametrize("params", [HestonParams(),
                                     HestonParams(k=0.5, theta=0.01,
                                                  sigma=1.0)])
-def test_em_lrm_kernel_matches_plain(dev, rng, params):
-    """K2-LRM (csrc/em_lrm.cu) against lrm_plain on the card: v_T, vI_rest
-    and the five scores of every path bitwise and finite (also where Gamma
-    draws underflow), the rng's counter rising."""
+def test_em_lrm_kernel_matches_plain(dev, rng, params, schedule):
+    """K2-LRM (csrc/em_lrm.cu) against lrm_plain on the card, on the
+    schedule K2 would take and on each one forced: v_T, vI_rest and the
+    five scores of every path bitwise and finite (also where Gamma draws
+    underflow), the rng's counter rising."""
     from nmch_tpu_torch.ops.em_lrm import lrm_plain
     from nmch_tpu_torch.ops.em_lrm_cuda import em_lrm_scores_cuda, \
         variant_name as lrm_name
     pv = params.as_tensor("cpu")
     before = em_lrm_scores_cuda.variant_launches.get(lrm_name(rng), 0)
     k = em_lrm_scores_cuda(pv, (1234, 0), 2, 0, N=16, n_paths=1 << 12,
-                           device=dev, rng=rng)
+                           device=dev, rng=rng, schedule=schedule)
     assert em_lrm_scores_cuda.variant_launches[lrm_name(rng)] == before + 1
     p = lrm_plain(pv, (1234, 0), 2, 0, N=16, n_paths=1 << 12, rng=rng,
                   device=dev)

@@ -165,6 +165,38 @@ def test_em_consts_bitwise_f32(pi, N_):
         assert np.float32(g).view(np.uint32) == w.view(np.uint32), name
 
 
+@pytest.mark.parametrize("N_", [1, 16, 1000])
+def test_em_consts_table_transcendentals_are_f64_rounded(N_):
+    """exp(-k dt) and ln S_0 are float64 results rounded once to float32,
+    so the constants do not depend on the host's float32 libm: the whole
+    table equals numpy's float32 arithmetic around those two values, over
+    4096 random points (no XLA involved)."""
+    rs = np.random.default_rng(N_)
+    n = 4096
+    f32 = np.float32
+    T, S_0, v_0, r = (rs.uniform(lo, hi, n).astype(f32) for lo, hi in (
+        (0.05, 5.0), (0.2, 5.0), (0.01, 0.5), (-0.05, 0.1)))
+    k, rho, theta, sigma = (rs.uniform(lo, hi, n).astype(f32) for lo, hi in (
+        (0.05, 8.0), (-0.95, 0.95), (0.005, 0.5), (0.05, 1.5)))
+    pm = np.stack([T, S_0, v_0, r, k, rho, theta, sigma], axis=1)
+    got = tem.em_consts_table(torch.from_numpy(pm), N_, 128.0).numpy()
+    dt = T / f32(N_)
+    e = np.exp(-(k * dt).astype(np.float64)).astype(f32)
+    log_s0 = np.log(S_0.astype(np.float64)).astype(f32)
+    sig2 = sigma * sigma
+    one_m = f32(1.0) - e
+    want = np.stack([v_0, S_0, f32(2.0) * k * e / (sig2 * one_m),
+                     f32(2.0) * k * theta / sig2,
+                     sig2 * one_m / (f32(2.0) * k), dt * f32(0.5), log_s0,
+                     log_s0 + r * T, rho / sigma, k * theta * T, k,
+                     f32(1.0) - rho * rho, np.full(n, f32(128.0))], axis=1)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    x = torch.from_numpy(-(k * dt))
+    assert torch.equal(tem.exp_f32(x), torch.from_numpy(e))
+    assert torch.equal(tem.log_f32(torch.from_numpy(S_0)),
+                       torch.from_numpy(log_s0))
+
+
 def test_poisson_cut_defaults_pinned():
     """None is curand's 4000 at the ops layer (em_consts, em_moments_scan,
     em_moments_cuda, poisson_from_stream) and FAST_POISSON_CUT = 128 at

@@ -13,6 +13,9 @@ moves a price by ~1e-5, the trio and the LRM Greeks by less than 1e-5
 sigma, h = 0.015).
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,11 +23,12 @@ import torch
 from scipy.special import digamma as sp_digamma
 
 import nmch_tpu
-from nmch_tpu.ops import em_greeks as jem, em_lrm as jlrm
+from nmch_tpu.ops import em as jem_law, em_greeks as jem, em_lrm as jlrm
+from nmch_tpu.ops.fe import path_index_grid as j_path_index_grid
 from nmch_tpu_torch import HestonParams, NMCH_EM, SimConfig
 from nmch_tpu_torch.ops import em_greeks, em_lrm
 from nmch_tpu_torch.ops.em import em_consts, em_moments_scan, \
-    path_law_from_consts
+    path_law_from_consts, payoffs_from_consts
 from nmch_tpu_torch.ops.em_cuda import em_law_cuda, em_moments_cuda
 from nmch_tpu_torch.ops.em_lrm_cuda import em_lrm_scores_cuda
 from nmch_tpu_torch.ops.fe import path_index_grid
@@ -116,21 +120,80 @@ def test_crn_fd_of_the_trio_matches_pathwise():
                                                abs=5e-4), name
 
 
+SHARE = 0.999       # paths whose counter and payoff agree (test_torch_em.py)
+PATH_REL = 1e-4     # a path's payoff, torch's CPU log/exp vs XLA's
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_cond_payoffs(n_paths):
+    """nmch_tpu's per-path conditional payoffs and final counters at the
+    strict cut (em_path_law, em_conditional_payoff), in one jitted
+    function."""
+    def f(pv, k0, k1):
+        lo = j_path_index_grid(n_paths).astype(jnp.uint32)
+        m, s, _, _, ctr = jem_law.em_path_law(pv, N, lo, jnp.zeros_like(lo),
+                                              jnp.uint32(0), k0, k1)
+        return jem_law.em_conditional_payoff(m, s, pv[1]), ctr
+    return jax.jit(f)
+
+
 @pytest.mark.parametrize("params,n_paths", [(P, NP), (UNDERFLOW, 2048)],
                          ids=["default", "gamma_underflow"])
 def test_lrm_matches_nmch_tpu(params, n_paths):
     """Small Gamma shapes (d = 0.01) underflow v' to 0 on many lanes; the
-    floors keep every score finite, as in nmch_tpu."""
+    floors keep every score finite, as in nmch_tpu.
+
+    Held per path as test_torch_em.py holds EM paths: each path's final
+    counter and conditional payoff against nmch_tpu's, agreeing on >=
+    SHARE of paths.  A flipped path (another sampler decision, from
+    torch's CPU log/exp against XLA's) moves the estimators by its own
+    terms, so they enter the bars as slack:
+    * the price: the flipped paths' payoff differences over n_paths;
+    * a Greek: the control variate's shift (those differences times the
+      mean score), plus each flipped path's own explicit and score terms
+      on either side, taken at the port's values (``lrm_scores_plain``).
+    UNDERFLOW at 2048 paths flips one path (56): price slack 6.0e-6 (the
+    price is 6.0e-6 apart), Greek slack from 8.6e-5 (k) to 2.7e-3 (theta,
+    whose mean score is ~420; 2.3e-3 apart).  The default case flips
+    none, so its bars stay rel 1e-5 and rel 1e-4 / abs 1e-5."""
     jp, jg = jlrm.em_greeks_lrm(params.as_array(), jnp.uint32(0), *KEY,
                                 N=N, n_paths=n_paths)
     tp, tg = em_lrm.em_greeks_lrm(_pv(params), 0, *KEY, N=N,
                                   n_paths=n_paths, device="cpu")
-    assert float(tp) == pytest.approx(float(jp), rel=1e-5)
+    j_pay, j_ctr = (np.asarray(x).ravel() for x in _jax_cond_payoffs(
+        n_paths)(params.as_array(), *KEY))
+    t_pay, t_ctr = payoffs_from_consts(
+        em_consts(_pv(params), N), N, path_index_grid(n_paths), 0, *KEY,
+        "philox", True)
+    t_pay, t_ctr = t_pay.numpy().ravel(), t_ctr.numpy().ravel()
+    agree = (t_ctr == j_ctr.astype(np.int64)) & (
+        np.abs(t_pay - j_pay) <= PATH_REL * np.abs(j_pay) + 1e-7)
+    assert agree.mean() >= SHARE
+    d_pay = (t_pay - j_pay).astype(np.float64)[~agree]
+    slack = {name: 0.0 for name in tg}
+    if d_pay.size:
+        out = em_lrm.lrm_plain(_pv(params), KEY, 0, 0, N=N, n_paths=n_paths)
+        scores = out[2:].reshape(5, -1).double().numpy()
+        flip = np.flatnonzero(~agree)
+        hc = np.abs(t_pay[flip] - float(tp))
+        for f, h, dh in zip(flip, hc, np.abs(d_pay)):
+            one = out[:, f // 128, f % 128].reshape(7, 1, 1)
+            _, explicit = em_lrm.lrm_from_scores(_pv(params), N, one[0],
+                                                 one[1], one[2:])
+            for q, name in enumerate(tg):
+                slack[name] += 2.0 * (abs(float(explicit[name]))
+                                      + (h + dh) * abs(scores[q, f])) \
+                    / n_paths
+        for q, name in enumerate(tg):
+            slack[name] += abs(d_pay.sum()) / n_paths * abs(
+                scores[q].mean())
+    assert abs(float(tp) - float(jp)) <= 1e-5 * abs(float(jp)) \
+        + np.abs(d_pay).sum() / n_paths
     assert list(tg) == list(em_lrm.LRM_PARAMS)
     for name in tg:
         assert np.isfinite(float(tg[name])), name
-        assert float(tg[name]) == pytest.approx(float(jg[name]), rel=1e-4,
-                                                abs=1e-5), name
+        assert abs(float(tg[name]) - float(jg[name])) <= max(
+            1e-4 * abs(float(jg[name])), 1e-5) + slack[name], name
 
 
 def test_lrm_price_is_the_conditional_estimator():

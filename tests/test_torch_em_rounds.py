@@ -9,7 +9,9 @@ off and on, and count each warp's iterations: the largest, over its
 lanes, of the lane's final counter plus the iterations it waited for its
 phase or its branch.  K4's emulation (one point per warp) is held to the
 plain sweep the same way.  They also pin K4's point order
-(``ops/sweep_cuda.py::em_point_order``)."""
+(``ops/sweep_cuda.py::em_point_order``), and hold K2-LRM's per-step report
+on either schedule (``ops/em_lrm.py::LrmSteps`` as the emulation's
+report) bitwise to the plain score loop ``lrm_scores_plain``."""
 
 import pytest
 import torch
@@ -17,6 +19,9 @@ import torch
 from nmch_tpu_torch import HestonParams
 from nmch_tpu_torch.explore import grid_params, grid_points
 from nmch_tpu_torch.ops.em import em_consts, em_consts_table, em_payoffs
+from nmch_tpu_torch.ops.em_lrm import LrmSteps, lrm_jacobian, \
+    lrm_scores_plain
+from nmch_tpu_torch.ops.em_lrm_cuda import em_lrm_scores_cuda
 from nmch_tpu_torch.ops.em_schedule import WARP, active_lane_share, \
     emulate, sweep_consts
 from nmch_tpu_torch.ops.fe import path_index_grid
@@ -123,3 +128,64 @@ def test_round_schedule_refuses_a_table_of_another_shape():
         em_round_schedule(torch.zeros(4, 12), 1000)
     with pytest.raises(ValueError, match=r"\(P, 13\)"):
         em_round_schedule(torch.zeros(13), 1000)
+
+
+# K2-LRM's regimes: (params, N); cut None (4000), as em_greeks_lrm runs it
+LRM_REGIMES = {
+    "ptrs": (HestonParams(), 8),
+    "gamma_underflow": (HestonParams(k=0.5, theta=0.01, sigma=1.0), 16),
+}
+
+
+def _lrm_both_schedules(pv, N, n_paths, rng):
+    """(the plain scores, float32 (7, n_paths), and the emulation's on the
+    round schedule and on the step loops, (2, 7, n_paths))."""
+    c = em_consts(pv, N)
+    J = lrm_jacobian(pv, N)
+    idx = path_index_grid(n_paths, BASE)
+    want = lrm_scores_plain(c, J, N, idx, EPOCH, 1234, 0, rng)
+    rep = LrmSteps(c, J, 2 * n_paths)
+    emulate(c, N, idx.flatten().repeat(2), EPOCH, 1234, 0, rng, True,
+            torch.arange(2 * n_paths) < n_paths, report=rep)
+    return want.reshape(7, -1), rep.out().view(7, 2, -1).transpose(0, 1)
+
+
+@pytest.mark.parametrize("rng", ["philox", "threefry4"])
+@pytest.mark.parametrize("regime", list(LRM_REGIMES))
+def test_lrm_report_is_bitwise_the_plain_scores(regime, rng):
+    """v_T, vI_rest and the five scores of every path, reported step by
+    step where each lane's Gamma draw settles, bitwise lrm_scores_plain's
+    on both schedules (UNDERFLOW: v' underflows to 0 on many lanes)."""
+    params, N = LRM_REGIMES[regime]
+    want, got = _lrm_both_schedules(params.as_tensor("cpu"), N, N_PATHS, rng)
+    for schedule, g in zip(("rounds", "steps"), got):
+        assert torch.equal(g.view(torch.int32), want.view(torch.int32)), \
+            schedule
+        assert bool(torch.isfinite(g).all()), schedule
+
+
+def test_lrm_report_after_both_samplers_fallbacks():
+    """With v_0 = NaN every Poisson draw ends on its 64-round fallback and
+    every Gamma draw on its 32-round one (MT accepts >= 95% a round, so
+    no finite input of the tests reaches it): each lane still reports its
+    steps in order, bitwise (NaN bits included) the plain loop's."""
+    pv = HestonParams().as_tensor("cpu")
+    pv[2] = float("nan")
+    want, got = _lrm_both_schedules(pv, 3, 256, "philox")
+    assert bool(torch.isnan(want).all())
+    for schedule, g in zip(("rounds", "steps"), got):
+        assert torch.equal(g.view(torch.int32), want.view(torch.int32)), \
+            schedule
+
+
+def test_lrm_wrapper_takes_a_schedule():
+    """On the CPU the schedule picks nothing (the plain loop runs); an
+    unknown one is refused."""
+    pv = HestonParams().as_tensor("cpu")
+    kw = dict(N=4, n_paths=128, device="cpu")
+    want = em_lrm_scores_cuda(pv, (1234, 0), 1, 0, **kw)
+    for schedule in ("steps", "rounds"):
+        assert torch.equal(em_lrm_scores_cuda(pv, (1234, 0), 1, 0, **kw,
+                                              schedule=schedule), want)
+    with pytest.raises(ValueError, match="schedule"):
+        em_lrm_scores_cuda(pv, (1234, 0), 1, 0, **kw, schedule="loops")

@@ -116,12 +116,118 @@ def test_seed_words_and_device_tables_match_the_host_algebra():
     assert tsc._seed_words("xorwow", 5) == (*tx.seed_state(5)[0],
                                             tx.seed_state(5)[1])
     assert tsc._seed_words("mrg32k3a", 5) == sum(tm.seed_state(5), ())
-    tab = tsc._init_tables("xorwow", "cpu").numpy().view(np.uint32)
-    np.testing.assert_array_equal(tab, tx._jump_tables().reshape(-1))
-    tab = tsc._init_tables("mrg32k3a", "cpu").numpy().view(np.uint32)
+    tab, lanes = (t.numpy().view(np.uint32)
+                  for t in tsc._init_tables("xorwow", "cpu"))
+    np.testing.assert_array_equal(
+        tab, tsc.xorwow_rows(tx._jump_tables()).reshape(-1))
+    np.testing.assert_array_equal(
+        lanes.reshape(-1, 32).T.reshape(32, 5, 32, 5),
+        tsp.init_lane_tables("xorwow"))
+    tab, lanes = (t.numpy().view(np.uint32)
+                  for t in tsc._init_tables("mrg32k3a", "cpu"))
     j1, j2 = tm._jump_tables()
     np.testing.assert_array_equal(tab.reshape(58, 2, 3, 3)[:, 0], j1)
     np.testing.assert_array_equal(tab.reshape(58, 2, 3, 3)[:, 1], j2)
+    np.testing.assert_array_equal(
+        lanes.reshape(-1, 32).T.reshape(32, 2, 3, 3),
+        tsp.init_lane_tables("mrg32k3a"))
+
+
+# --- the split skip-ahead of the init kernel --------------------------------
+
+@pytest.mark.parametrize("epoch,n_paths", [(0, 4096), (1, 4096),
+                                           (2**27 - 1, 4096),
+                                           (2**27 - 1, 1 << 18)])
+@pytest.mark.parametrize("rng", FAMILIES)
+def test_split_init_is_the_skip_ahead(rng, epoch, n_paths):
+    """The warp-uniform jumps, then each lane's combined table: bitwise
+    fe_stateful_state (every path bit up to 2^18, every epoch bit)."""
+    assert torch.equal(tsp.fe_stateful_state_split(rng, 1234, n_paths, epoch),
+                       tsp.fe_stateful_state(rng, 1234, n_paths, epoch))
+
+
+def test_lane_tables_are_products_of_the_path_jumps():
+    """Lane l's combined table is the product of path jumps 0..4 (tables
+    27..31) that l's bits select, by the exact host algebra (python ints;
+    the tables use numpy's GF(2) products)."""
+    from nmch_tpu_torch.rng import mrg32k3a as tm, xorwow as tx
+    cols = [tuple(sum(int(t[wi, b, wo]) << (32 * wo) for wo in range(5))
+                  for wi in range(5) for b in range(32))
+            for t in tx._jump_tables()[27:32]]
+    j1, j2 = tm._jump_tables()
+    eye = tuple(1 << j for j in range(160))
+    for lane in range(32):
+        m1 = m2 = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
+        xw = eye
+        for k in range(5):
+            if lane >> k & 1:
+                xw = tx._mat_mul(cols[k], xw)
+                m1 = tm._mat_mul(m1, tuple(map(tuple, j1[27 + k].tolist())),
+                                 tm.M1)
+                m2 = tm._mat_mul(m2, tuple(map(tuple, j2[27 + k].tolist())),
+                                 tm.M2)
+        np.testing.assert_array_equal(tsp.init_lane_tables("xorwow")[lane],
+                                      tx._columns_to_table(xw))
+        np.testing.assert_array_equal(tsp.init_lane_tables("mrg32k3a")[lane],
+                                      np.array([m1, m2], dtype=np.uint32))
+
+
+def _parity(x: np.ndarray) -> np.ndarray:
+    for sh in (16, 8, 4, 2, 1):
+        x = x ^ (x >> np.uint32(sh))
+    return x & np.uint32(1)
+
+
+@pytest.mark.parametrize("rng", FAMILIES)
+def test_init_kernel_layouts_emulated(rng):
+    """csrc/fe_stateful.cu::stateful_init step by step in numpy on the
+    device tables (``_init_tables``): the shared jumps (XORWOW: lane l forms
+    bit l of each output word from the row form, a ballot gathers it),
+    then lane l's combined table read at word k * 32 + l.  The states of
+    four warps at epoch 5 bitwise fe_stateful_state's."""
+    from nmch_tpu_torch.rng import mrg32k3a as tm
+    tabs, lanes = (t.numpy().view(np.uint32) for t in
+                   tsc._init_tables(rng, "cpu"))
+    lanes = lanes.reshape(-1, 32)
+    u32 = np.uint32
+    want = tsp.fe_stateful_state(rng, 9, 1 << 12, 5).numpy()
+    base = tsc._seed_words(rng, 9)
+    l_idx = np.arange(32)
+    for warp in (0, 1, 37, 127):
+        s = [u32(w) for w in base]
+        ms = [m for m in range(27) if 5 >> m & 1] + \
+            [32 + k for k in range(26) if warp >> k & 1]
+        for m in ms:
+            if rng == "xorwow":
+                rows = tabs.reshape(58, 5, 5, 32)[m]
+                s[:5] = [u32((_parity(np.bitwise_xor.reduce(
+                    [rows[wo, wi] & s[wi] for wi in range(5)]))
+                    .astype(np.uint64) << l_idx.astype(np.uint64)).sum())
+                    for wo in range(5)]
+            else:
+                j = tabs.reshape(58, 2, 3, 3)[m].astype(object)
+                s = [sum(j[0, r, c] * int(s[c]) for c in range(3)) % tm.M1
+                     for r in range(3)] + \
+                    [sum(j[1, r, c] * int(s[3 + c]) for c in range(3)) % tm.M2
+                     for r in range(3)]
+        got = np.empty((6, 32), dtype=np.int64)
+        for lane in l_idx:
+            t = lanes[:, lane]
+            if rng == "xorwow":
+                acc = np.zeros(5, dtype=u32)
+                for wi in range(5):
+                    for b in range(32):
+                        if int(s[wi]) >> b & 1:
+                            acc ^= t[(wi * 32 + b) * 5:(wi * 32 + b) * 5 + 5]
+                got[:, lane] = [*acc, base[5]]
+            else:
+                j = t.reshape(2, 3, 3).astype(object)
+                got[:, lane] = [
+                    sum(j[0, r, c] * int(s[c]) for c in range(3)) % tm.M1
+                    for r in range(3)] + [
+                    sum(j[1, r, c] * int(s[3 + c]) for c in range(3)) % tm.M2
+                    for r in range(3)]
+        np.testing.assert_array_equal(got, want[:, warp * 32:warp * 32 + 32])
 
 
 @pytest.mark.parametrize("call,match", [
@@ -270,3 +376,24 @@ def test_guard_draws_per_compute_below_epoch_stride(monkeypatch):
     monkeypatch.setattr(tsp, "epoch_stride", lambda rng: 64)
     with pytest.raises(ValueError, match="not fewer than the 64"):
         m.compute()
+
+
+def test_advance_nibble_entries_emulated():
+    """csrc/fe_stateful.cu's XORWOW advance in numpy: the 16 entries of each
+    input nibble (entry v = entry v & (v - 1) XOR the column of v's lowest
+    bit), one entry XORed in a nibble: bitwise advance_state."""
+    steps = tsp.epoch_stride("xorwow") - tsp.draws_per_compute(1000)
+    tab = tsc._advance_table("xorwow", steps, "cpu")[0].numpy().view(
+        np.uint32).reshape(160, 5)
+    nib = np.zeros((40, 16, 5), dtype=np.uint32)
+    for v in range(1, 16):
+        low = (v & -v).bit_length() - 1
+        nib[:, v] = nib[:, v & (v - 1)] ^ tab[4 * np.arange(40) + low]
+    st = tsp.fe_stateful_state("xorwow", 11, 512, 2)
+    words = st.numpy().astype(np.uint32)
+    acc = np.zeros((5, 512), dtype=np.uint32)
+    for g in range(40):
+        v = (words[g // 8] >> np.uint32(4 * (g % 8))) & np.uint32(15)
+        acc ^= nib[g, v].T
+    want = tsp.advance_state("xorwow", st, steps).numpy()
+    np.testing.assert_array_equal(acc, want[:5])
