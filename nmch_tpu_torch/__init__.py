@@ -16,7 +16,10 @@ imports torch, numpy and scipy, never jax.
 has ``NMCH_FE(..., engine="qmc")`` (randomized quasi-Monte Carlo).
 The entry points are the modules ``cli`` (one pricing run) and
 ``explore`` (the (k, theta, sigma) sweep), each runnable with
-``python -m``.
+``python -m``; ``parallel.mesh.sharded_moments`` shards the paths over
+``torch.distributed`` ranks (``examples/multichip.py``,
+``examples/multihost.py``), and ``prewarm()`` builds the kernels once
+before ranks start.
 """
 
 from .params import HestonParams, SimConfig, DEFAULT_PARAMS, DEFAULT_CONFIG
@@ -24,11 +27,12 @@ from .results import SimResult, reference_err, correct_ci_error
 from .methods.base import NMCH
 from .methods.fe import NMCH_FE
 from .methods.em import NMCH_EM
+from .utils.prewarm import prewarm
 
 __version__ = "0.1.0"
 
 __all__ = [
     "HestonParams", "SimConfig", "DEFAULT_PARAMS", "DEFAULT_CONFIG",
     "SimResult", "reference_err", "correct_ci_error",
-    "NMCH", "NMCH_FE", "NMCH_EM", "__version__",
+    "NMCH", "NMCH_FE", "NMCH_EM", "prewarm", "__version__",
 ]

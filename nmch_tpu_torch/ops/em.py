@@ -178,11 +178,19 @@ def terminal_from_consts(c: EmConsts, N: int, path_lo, path_hi, epoch,
     """``em_terminal_core`` from its constants (``path_law_from_consts``)."""
     m, sig_eff, Vt, vI, ctr = path_law_from_consts(c, N, path_lo, path_hi,
                                                    epoch, k0, k1, rng, seed)
-    # terminal draw (one more block per path)
+    S_T, ctr = terminal_draw(m, sig_eff, ctr, path_lo, path_hi, epoch, k0,
+                             k1, rng)
+    return S_T, Vt, vI, ctr
+
+
+def terminal_draw(m, sig_eff, ctr, path_lo, path_hi, epoch, k0, k1,
+                  rng: str):
+    """S_T = exp(m + sig_eff * G) from one more block of each path's
+    stream after the variance path; returns (S_T, final_ctr)."""
     w0, w1, _, _, ctr = make_stream_draw4(rng, epoch, path_lo, path_hi,
                                           k0, k1)(ctr)
     g, _ = boxmuller(uniform_open01(w0), uniform_open01(w1))
-    return torch.exp(m + sig_eff * g), Vt, vI, ctr
+    return torch.exp(m + sig_eff * g), ctr
 
 
 # Abramowitz–Stegun 7.1.26 (the reference's nmch::utils::NP, utils.cu:5-25)
@@ -250,15 +258,25 @@ def em_payoffs(params, N: int, path_idx, epoch, k0, k1,
 def payoffs_from_consts(c: EmConsts, N: int, path_idx, epoch, k0, k1,
                         rng: str, conditional: bool,
                         seed: int | None = None):
-    """``em_payoffs`` from its constants (``path_law_from_consts``)."""
+    """``em_payoffs`` from its constants: the ``conditional`` entry of
+    ``payoffs_both_from_consts``."""
+    return payoffs_both_from_consts(c, N, path_idx, epoch, k0, k1, rng,
+                                    seed)[conditional]
+
+
+def payoffs_both_from_consts(c: EmConsts, N: int, path_idx, epoch, k0, k1,
+                             rng: str, seed: int | None = None) -> dict:
+    """Both estimators from one simulation of the variance path law
+    (``path_law_from_consts``): {False: (payoff, final_ctr) of the sampled
+    terminal price, which draws one more block a path, True: those of the
+    conditional payoff}."""
     path_hi = torch.zeros_like(path_idx)
-    if conditional:
-        m, sig_eff, _, _, ctr = path_law_from_consts(
-            c, N, path_idx, path_hi, epoch, k0, k1, rng, seed)
-        return em_conditional_payoff(m, sig_eff, c.S_0, c.log_S0), ctr
-    S_T, _, _, ctr = terminal_from_consts(c, N, path_idx, path_hi, epoch,
-                                          k0, k1, rng, seed)
-    return torch.clamp_min(S_T - c.S_0, 0.0), ctr
+    m, sig_eff, _, _, ctr = path_law_from_consts(c, N, path_idx, path_hi,
+                                                 epoch, k0, k1, rng, seed)
+    S_T, ctr_t = terminal_draw(m, sig_eff, ctr, path_idx, path_hi, epoch,
+                               k0, k1, rng)
+    return {False: (torch.clamp_min(S_T - c.S_0, 0.0), ctr_t),
+            True: (em_conditional_payoff(m, sig_eff, c.S_0, c.log_S0), ctr)}
 
 
 def em_moments_scan(params, N: int, path_idx, epoch, k0, k1,

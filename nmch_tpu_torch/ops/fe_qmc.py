@@ -492,6 +492,37 @@ def qmc_chunk(n: int, N: int, n_shifts: int, max_chunk: int | None) -> int:
     return chunk
 
 
+def qmc_range_sums(params_vec, epoch, k0, k1, *, N: int, count: int,
+                   base: int = 0, n_shifts: int = DEFAULT_N_SHIFTS,
+                   sim: str = "cuda", scramble: str = "lms-shift",
+                   max_chunk: int | None = None, ndtri_mode: str = "fast",
+                   bridge: str = "mxu", device):
+    """Per-replicate payoff sums, float64 (n_shifts,), over Sobol' points
+    [base, base + count) of each replicate, in chunks of ``qmc_chunk``
+    points whose sums are added with a compensated (Kahan) sum: the whole
+    point set for ``fe_moments_qmc``, one rank's range for
+    ``parallel/mesh.py``."""
+    params = params_vec.detach().to("cpu", torch.float32)
+    epoch = int(epoch) & MASK32
+    k0, k1 = int(k0), int(k1)
+    chunk = qmc_chunk(count, N, n_shifts, max_chunk)
+    kw = dict(N=N, count=chunk, n_shifts=n_shifts, sim=sim,
+              scramble=scramble, ndtri_mode=ndtri_mode, bridge=bridge,
+              device=device)
+    acc = comp = None
+    for c in range(count // chunk):
+        s = qmc_replicate_payoff_sums(params, epoch, k0, k1,
+                                      base=base + c * chunk, **kw)
+        if acc is None:
+            acc, comp = s, torch.zeros_like(s)
+            continue
+        y = s - comp
+        t = acc + y
+        comp = (t - acc) - y
+        acc = t
+    return acc
+
+
 def fe_moments_qmc(params_vec, epoch, k0, k1, *, N: int, n_paths: int,
                    n_shifts: int = DEFAULT_N_SHIFTS, sim: str = "cuda",
                    scramble: str = "lms-shift",
@@ -518,23 +549,9 @@ def fe_moments_qmc(params_vec, epoch, k0, k1, *, N: int, n_paths: int,
     if n_paths % n_shifts:
         raise ValueError(f"n_paths={n_paths} must be divisible by "
                          f"n_shifts={n_shifts}")
-    params = params_vec.detach().to("cpu", torch.float32)
-    epoch = int(epoch) & MASK32
-    k0, k1 = int(k0), int(k1)
     n = n_paths // n_shifts
-    chunk = qmc_chunk(n, N, n_shifts, max_chunk)
-    kw = dict(N=N, count=chunk, n_shifts=n_shifts, sim=sim,
-              scramble=scramble, ndtri_mode=ndtri_mode, bridge=bridge,
-              device=device)
-    acc = comp = None
-    for c in range(n // chunk):
-        s = qmc_replicate_payoff_sums(params, epoch, k0, k1,
-                                      base=c * chunk, **kw)
-        if acc is None:
-            acc, comp = s, torch.zeros_like(s)
-            continue
-        y = s - comp
-        t = acc + y
-        comp = (t - acc) - y
-        acc = t
+    acc = qmc_range_sums(params_vec, epoch, k0, k1, N=N, count=n,
+                         n_shifts=n_shifts, sim=sim, scramble=scramble,
+                         max_chunk=max_chunk, ndtri_mode=ndtri_mode,
+                         bridge=bridge, device=device)
     return rqmc_moments_from_means(acc / n, n_paths, n_shifts)

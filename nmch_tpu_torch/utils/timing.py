@@ -76,20 +76,34 @@ def card_name_and_power_limit() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def device_ops(fn, calls: int = 1) -> list:
+_MARK = "spin_kernel"     # torch.cuda._sleep's kernel
+
+
+def device_ops(fn, calls: int = 1, traces: int = 3) -> list:
     """The names of the device operations (kernels, memsets, copies) that
     ``calls`` calls of ``fn()`` put on the card, in the order the profiler
-    records them.  torch.profiler runs a warm-up cycle of the same calls
-    first and reports the next cycle alone, so that the activity records
-    that a freshly started trace may drop fall in the warm-up."""
+    records them.  torch.profiler runs two warm-up cycles of the same
+    calls first and reports the next cycle alone, which a one-thread spin
+    kernel (``torch.cuda._sleep``) opens and closes.  A freshly started
+    trace may drop activity records: a trace that lacks either mark lost
+    some at an end and is taken again, up to ``traces`` times, and then
+    this raises; the marks are not returned."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=2, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(3):
+                torch.cuda._sleep(1)
+                for _ in range(calls):
+                    fn()
+                torch.cuda._sleep(1)
+                torch.cuda.synchronize()
+                prof.step()
+        ops = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(ops) >= 2 and all(_MARK in op for op in (ops[0], ops[-1])):
+            return ops[1:-1]
+    raise RuntimeError(f"device_ops: each of {traces} traces lost records "
+                       f"at an end ({ops})")

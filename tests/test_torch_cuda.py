@@ -520,3 +520,75 @@ def test_greeks_methods_launch_their_kernels(dev):
     assert em_law_cuda.variant_launches["em_philox_cond_law"] == law + 2
     assert em_moments_cuda.variant_launches["em_philox_cond"] == cond + 10
     assert em_lrm_scores_cuda.launches == lrm + 1
+
+
+def test_sharded_world_of_one_is_the_single_kernel(dev):
+    """With no process group, sharded_moments is one rank: K1 / K2 at
+    base_path 0, moments bitwise the single launch's, one launch each."""
+    from nmch_tpu_torch.parallel.mesh import make_mesh, sharded_moments
+    mesh = make_mesh(device=dev)
+    assert (mesh.world, mesh.device) == (1, dev)
+    pv = HestonParams().as_tensor("cpu")
+    kw = dict(N=64, n_paths=1 << 14)
+    for method, fn, cut in (("fe", fe_moments_cuda, {}),
+                            ("em", em_moments_cuda, {"poisson_cut": 128.0})):
+        before = fn.launches
+        got = torch.stack(sharded_moments(mesh, pv, 1234, 2, method=method,
+                                          **kw))
+        assert fn.launches == before + 1
+        want = torch.stack(fn(pv, (1234, 0), 2, 0, device=dev, **kw, **cut))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(method="fe"), dict(method="fe", rot=4), dict(method="em"),
+    dict(method="em", rng="threefry4", conditional=True),
+    dict(engine="qmc")])
+def test_sharded_ranks_on_the_card_match_the_single_kernel(dev, kw):
+    """Four ranks' parts (rank_moments on the card, one kernel launch
+    each) combined in rank order: rel 1e-12 of the single launch (QMC:
+    nmch_tpu's bars, 2e-6 / 2e-4)."""
+    from nmch_tpu_torch.ops.fe_qmc import fe_moments_qmc
+    from nmch_tpu_torch.ops.fe_qmc_cuda import qmc_payoff_sums_cuda
+    from nmch_tpu_torch.parallel.mesh import combine_moments, rank_moments
+    pv = HestonParams().as_tensor("cpu")
+    n_paths, N = 1 << 15, 32
+    engine = kw.get("engine", "cuda")
+    fn = {"qmc": qmc_payoff_sums_cuda, "cuda": (
+        fe_moments_cuda if kw.get("method") == "fe" else em_moments_cuda)}[
+            engine]
+    before = fn.launches
+    parts = [rank_moments(r, 4, pv, 1234, 1, N=N, n_paths=n_paths,
+                          device=dev, **kw) for r in range(4)]
+    assert fn.launches == before + 4
+    got = torch.stack(combine_moments(parts, engine=engine,
+                                      n_paths=n_paths)).tolist()
+    key = (1234, 0)
+    if engine == "qmc":
+        want = torch.stack(fe_moments_qmc(pv, 1, *key, N=N, n_paths=n_paths,
+                                          device=dev)).tolist()
+        assert got[0] == pytest.approx(want[0], rel=2e-6)
+        assert got[1] == pytest.approx(want[1], rel=2e-4)
+        return
+    single = dict(rng=kw.get("rng", "philox"))
+    if kw["method"] == "fe":
+        single["rot"] = kw.get("rot", 1)
+    else:
+        single.update(conditional=kw.get("conditional", False),
+                      poisson_cut=128.0)
+    want = torch.stack(fn(pv, key, 1, 0, N=N, n_paths=n_paths, device=dev,
+                          **single)).tolist()
+    for g, w in zip(got, want):
+        assert abs(g - w) <= 1e-12 * abs(w)
+
+
+def test_prewarm_on_the_card(dev):
+    """prewarm() builds the library and launches K1 (engine="cuda") or
+    the QMC path (engine="qmc") once."""
+    from nmch_tpu_torch import prewarm
+    from nmch_tpu_torch.ops.fe_qmc_cuda import qmc_payoff_sums_cuda
+    before = (fe_moments_cuda.launches, qmc_payoff_sums_cuda.launches)
+    assert prewarm() is None
+    prewarm(engine="qmc", block=False).join(timeout=300)
+    assert (fe_moments_cuda.launches, qmc_payoff_sums_cuda.launches) == (
+        before[0] + 1, before[1] + 1)

@@ -368,3 +368,49 @@ def test_kernel_literal_table_matches_nmch_tpu():
     for name, w in want.items():
         assert np.asarray(got[name], np.float32).view(np.uint32) == \
             np.asarray(w, np.float32).view(np.uint32), name
+
+
+@pytest.mark.parametrize("rng", ["philox", "threefry4", "xorwow"])
+def test_payoffs_both_from_consts_is_each_estimator_bitwise(rng):
+    """One law run gives both estimators: at one point, the sampled one is
+    ``terminal_from_consts``'s S_T and the conditional one leaves the
+    stream where the law ends; at four sweep points on a leading axis, at
+    their own epochs, each point's pair is bitwise that point's own
+    ``em_payoffs`` (the checks that share a plain run between a variant
+    and its conditional twin rely on this)."""
+    from nmch_tpu_torch.ops.sweep import _columns
+    seed = 1234 if rng == "xorwow" else None
+    pidx = path_index_grid(1024, 4096)
+    zero = torch.zeros_like(pidx)
+    pm = torch.stack([_pv(p) for p in (
+        JHestonParams(), JHestonParams(sigma=1.0, theta=0.01, k=1.0),
+        JHestonParams(v_0=0.4, theta=0.4), JHestonParams(k=0.1, theta=0.5))])
+    c = tem.em_consts(pm[0], N, 128.0)
+    both = tem.payoffs_both_from_consts(c, N, pidx, 3, 11, 22, rng, seed)
+    S_T, _, _, ctr_t = tem.terminal_from_consts(c, N, pidx, zero, 3, 11, 22,
+                                                rng, seed)
+    *_, ctr_law = tem.path_law_from_consts(c, N, pidx, zero, 3, 11, 22, rng,
+                                           seed)
+    assert torch.equal(both[False][0].view(torch.int32),
+                       torch.clamp_min(S_T - c.S_0, 0.0).view(torch.int32))
+    for got, want in ((both[False][1], ctr_t), (both[True][1], ctr_law)):
+        if seed is None:
+            assert torch.equal(got, want)
+        else:       # the final 6-tuple of state words
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if seed is not None:
+        return
+    assert torch.equal(both[False][1], ctr_law + 1)   # one more block
+    table = tem.em_consts_table(pm, N, 128.0)
+    cols = _columns(table, "cpu")
+    epochs = [7, 2, 2**32 - 1, 0]
+    sweep = tem.payoffs_both_from_consts(
+        tem.EmConsts(*cols[:-1], float(table[0, -1])), N, pidx,
+        torch.tensor(epochs).reshape(4, 1, 1), 11, 22, rng)
+    for p, ep in enumerate(epochs):
+        for cond in (False, True):
+            pay, ctr = tem.em_payoffs(pm[p], N, pidx, ep, 11, 22, rng,
+                                      cond, 128.0)
+            assert torch.equal(pay.view(torch.int32),
+                               sweep[cond][0][p].view(torch.int32))
+            assert torch.equal(ctr, sweep[cond][1][p])
