@@ -45,6 +45,7 @@ from .ops.sweep_cuda import em_sweep_cuda, fe_sweep_cuda
 from .params import HestonParams, SimConfig
 from .results import SimResult
 from .rng.philox import split_seed
+from .utils.timing import span
 
 K_MIN, K_MAX = 0.1, 10.0
 THETA_MIN, THETA_MAX = 0.01, 0.5
@@ -133,16 +134,20 @@ def grid_params(pts=None) -> torch.Tensor:
 def batched_moments(cfg: SimConfig, seed: int, method: str, engine: str,
                     rng: str, conditional: bool, device):
     """(E[X], E[X^2]) of every grid point in one sweep (point p at epoch
-    p): float64 (P,) tensors on ``device``."""
-    pm = grid_params()
-    key = split_seed(seed)
-    kw = dict(N=cfg.N, n_paths=cfg.n_paths, rng=rng, device=device)
-    if method == "fe":
-        fn = fe_sweep_cuda if engine == "cuda" else fe_sweep_plain
-        return fn(pm, key, 0, **kw)
-    fn = em_sweep_cuda if engine == "cuda" else em_sweep_plain
-    return fn(pm, key, 0, conditional=conditional,
-              poisson_cut=BATCHED_EM_POISSON_CUT, **kw)
+    p): float64 (P,) tensors on ``device``.  Spans: ``prepare`` the call
+    (the kernels are queued, not waited for), ``prepare.grid`` the
+    parameter rows and the key."""
+    with span("prepare"):
+        with span("prepare.grid"):
+            pm = grid_params()
+            key = split_seed(seed)
+        kw = dict(N=cfg.N, n_paths=cfg.n_paths, rng=rng, device=device)
+        if method == "fe":
+            fn = fe_sweep_cuda if engine == "cuda" else fe_sweep_plain
+            return fn(pm, key, 0, **kw)
+        fn = em_sweep_cuda if engine == "cuda" else em_sweep_plain
+        return fn(pm, key, 0, conditional=conditional,
+                  poisson_cut=BATCHED_EM_POISSON_CUT, **kw)
 
 
 def sweep_batched(cfg: SimConfig, seed: int, out=sys.stdout,

@@ -28,7 +28,7 @@ from ..oracle.black_scholes import reference_true_price
 from ..params import HestonParams, SimConfig
 from ..results import SimResult
 from ..rng.streams import PathStreams
-from ..utils.timing import Timer
+from ..utils.timing import Timer, span
 
 
 def resolve_device(device) -> torch.device:
@@ -82,19 +82,22 @@ class NMCH(abc.ABC):
         tensors on ``self.device``."""
 
     def compute(self) -> SimResult:
-        """One Monte Carlo pricing run; each call draws a fresh epoch."""
-        if self.streams is None:
-            raise RuntimeError("call init(seed) before compute()")
-        epoch = self.streams.next_epoch()
-        with Timer(self.device) as t:
-            m, m2 = self._moments(epoch)
-            m, m2 = torch.stack([m, m2]).tolist()
-        self.result = SimResult(price=m, price_squared=m2,
-                                n_paths=self.cfg.n_paths,
-                                exec_time_ms=t.ms,
-                                init_time_ms=self.init_time_ms,
-                                synthesized_moments=self.synthesized_moments)
-        return self.result
+        """One Monte Carlo pricing run; each call draws a fresh epoch.
+        Spans (``utils/timing.py::span``): ``compute`` the whole call,
+        ``prepare`` the host's work until the kernel is queued."""
+        with span("compute"):
+            if self.streams is None:
+                raise RuntimeError("call init(seed) before compute()")
+            epoch = self.streams.next_epoch()
+            with Timer(self.device) as t:
+                with span("prepare"):
+                    m, m2 = self._moments(epoch)
+                m, m2 = torch.stack([m, m2]).tolist()
+            self.result = SimResult(
+                price=m, price_squared=m2, n_paths=self.cfg.n_paths,
+                exec_time_ms=t.ms, init_time_ms=self.init_time_ms,
+                synthesized_moments=self.synthesized_moments)
+            return self.result
 
     def finalize(self) -> None:
         """Release resources (the reference frees sum/states)."""

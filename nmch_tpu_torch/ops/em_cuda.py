@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from .._build import load_library
+from ..utils.timing import span
 from .em import em_conditional_payoff, em_consts, em_payoffs, \
     path_law_from_consts
 from .fe import LANES, moments_f64, path_index_grid
@@ -90,7 +91,8 @@ def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
         m, m2 = moments_f64(payoff)
         return (m, m2, payoff, ctr) if per_path else (m, m2)
 
-    consts = (ctypes.c_float * 13)(*em_consts(params, N, poisson_cut))
+    with span("prepare.consts"):
+        consts = (ctypes.c_float * 13)(*em_consts(params, N, poisson_cut))
     partials = torch.empty(2 * (n_paths // LANES), dtype=torch.float64,
                            device=device)
     out = torch.empty(2, dtype=torch.float64, device=device)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from .._build import load_library
+from ..utils.timing import span
 from .fe import BOXES, DEVICE_NOT_TPU, LANES, fe_moments_kernel_plain
 
 _MAX_N = 1 << 30
@@ -127,11 +128,13 @@ def count_launch(fn, name: str) -> None:
 
 def call_kernel(entry: str, name: str, device, *args) -> None:
     """Call the kernel library's C entry point ``entry`` with ``args`` and
-    the device's current stream; raise if it returns a CUDA error."""
-    lib, _ = load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
+    the device's current stream; raise if it returns a CUDA error.  Span
+    ``prepare.enqueue``: the library lookup, the stream and the call."""
+    with span("prepare.enqueue"):
+        lib, _ = load_library()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = getattr(lib, entry)(*args, stream)
     if rc != 0:
         msg = lib.nmch_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.timing import span
 from .em import em_consts_table
 from .em_cuda import em_round_schedule, variant_name
 from .fe import LANES
@@ -69,7 +70,8 @@ def fe_sweep_cuda(params_matrix, seed_words, epoch0, *, N: int,
                               n_paths=n_paths, rng=rng, device=device)
     P = params_matrix.shape[0]
     name = f"fe_sweep_{rng}"
-    params = params_matrix.contiguous().to(device)
+    with span("prepare.copy_in"):
+        params = params_matrix.contiguous().to(device)
     partials, out = _scratch(device, P, n_paths)
     call_kernel("nmch_fe_sweep_moments", name, device, params.data_ptr(), P,
                 k0, k1, epoch0, N, n_paths, RNGS.index(rng),
@@ -138,11 +140,14 @@ def em_sweep_cuda(params_matrix, seed_words, epoch0, *, N: int,
                               per_path=per_path)
     P = params_matrix.shape[0]
     name = "em_sweep_" + variant_name(rng, conditional)[len("em_"):]
-    table = em_consts_table(params_matrix, N, poisson_cut)
-    order = em_point_order(params_matrix, table)
-    dispatch = (2 * order + em_round_schedule(table, N)[order].long()).to(
-        device, torch.int32)
-    consts = table.to(device)
+    with span("prepare.consts"):
+        table = em_consts_table(params_matrix, N, poisson_cut)
+    with span("prepare.dispatch"):
+        order = em_point_order(params_matrix, table)
+        dispatch = 2 * order + em_round_schedule(table, N)[order].long()
+    with span("prepare.copy_in"):
+        dispatch = dispatch.to(device, torch.int32)
+        consts = table.to(device)
     partials, out = _scratch(device, P, n_paths)
     payoff = ctr = None
     if per_path:

@@ -1,18 +1,102 @@
-"""Wall-clock timing that waits for the device, and CUDA-event timing of
-queued runs.
+"""Wall-clock timing that waits for the device, CUDA-event timing of
+queued runs, and host spans inside a profiler's window.
 
 The reference brackets every init()/compute() with cudaEvent timers
 (``NMCH_FE.cu:370-385,395-411``).  PyTorch returns before a CUDA launch
 finishes, so on a CUDA device the timer synchronises on entry and on
 exit: the interval covers the device work, not just its enqueue.
+
+``span(name)`` marks what the host does at a layer boundary of a call
+(``compute``, ``prepare``, ``prepare.*``).  It records only while a
+``torch.profiler`` profile is on, on ``time.time_ns()``'s clock, the
+Unix-epoch nanoseconds to which the profiler converts its device trace,
+so that a span and the device operations it queued compare directly;
+``spans()`` returns what it recorded.
 """
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 import time
 
 import torch
+import torch.autograd.profiler as _profiler
+
+SPAN_LIMIT = 1 << 20        # records kept; later spans are counted, not kept
+
+
+class SpanRecord:
+    """One span: ``name``; ``start_ns`` and ``end_ns`` (``time.time_ns()``;
+    ``end_ns`` None while it is open); ``parent``, the index in
+    ``spans()`` of the span it opened inside, -1 at the top; and
+    ``request``, a per-process number that a top-level span takes when it
+    opens and its descendants share."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "request")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        rec = _recorder
+        self.parent = rec.open
+        if self.parent < 0:
+            rec.requests += 1
+            self.request = rec.requests
+        else:
+            self.request = rec.records[self.parent].request
+        rec.open = len(rec.records)
+        rec.records.append(self)
+        self.end_ns = None
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.time_ns()
+        _recorder.open = self.parent
+        return False
+
+
+_NO_SPAN = contextlib.nullcontext()     # what ``span`` returns while off
+
+
+class _Recorder:
+    """The process's spans: the profiler whose window they mark is one per
+    process too."""
+
+    def __init__(self):
+        self.records: list[SpanRecord] = []
+        self.open = -1          # index of the innermost open span
+        self.requests = 0       # request numbers taken so far
+        self.dropped = 0        # spans not kept past SPAN_LIMIT
+
+
+_recorder = _Recorder()
+
+
+def span(name: str):
+    """``with span(name): ...`` records the block as a ``SpanRecord`` while
+    a torch profiler records (``torch.profiler.profile`` with any
+    activities); otherwise it returns one shared object that does nothing,
+    at the cost of one flag read."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    if len(_recorder.records) >= SPAN_LIMIT:
+        _recorder.dropped += 1
+        return _NO_SPAN
+    return SpanRecord(name)
+
+
+def spans() -> list[SpanRecord]:
+    """The spans recorded in this process, in the order they opened (a
+    record's ``parent`` indexes this list)."""
+    return list(_recorder.records)
+
+
+def spans_dropped() -> int:
+    """How many spans opened past ``SPAN_LIMIT`` and were not kept."""
+    return _recorder.dropped
 
 
 class Timer:
