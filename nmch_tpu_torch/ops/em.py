@@ -24,10 +24,11 @@ lane-locally through the sampler rounds (``ops/sampling.py``), then one
 block for the terminal normal.  For a stateful family the "counter" is
 the 6-tuple of state words.
 
-``em_consts`` computes the loop constants once, in float32 on the CPU;
-the plain version here and the kernel wrapper (``ops/em_cuda.py``) both
-start from its bits.  ``em_consts_table`` gives the same bits for each
-point of a sweep (``ops/sweep.py``, ``ops/sweep_cuda.py``), and the
+``em_consts`` computes the loop constants once, in float32 arithmetic on
+Python floats; the plain version here and the kernel wrapper
+(``ops/em_cuda.py``) both start from its bits.  ``em_consts_table`` gives
+the same bits for each point of a sweep on (P,) tensor columns
+(``ops/sweep.py``, ``ops/sweep_cuda.py``), and the
 ``*_from_consts`` functions take constants that are Python floats (one
 point) or (P, 1, 1) tensors (P points on a leading axis).  Layout: paths
 in (n_paths/128, 128) tensors, as in ``ops/fe.py``; moments are summed in
@@ -36,6 +37,8 @@ float64.
 
 from __future__ import annotations
 
+import math
+import struct
 from typing import NamedTuple
 
 import numpy as np
@@ -72,12 +75,76 @@ class EmConsts(NamedTuple):
     poisson_cut: float  # lambda at and above which N_p is the normal approx
 
 
+_F32 = struct.Struct("f")
+
+
+def _f32(x: float) -> float:
+    """x rounded to float32 as IEEE does (ties to even, subnormals, inf
+    past float32's range, nan kept)."""
+    try:
+        return _F32.unpack(_F32.pack(x))[0]
+    except OverflowError:   # some Pythons refuse to pack what rounds to inf
+        return math.copysign(math.inf, x)
+
+
+def _div_f32(a: float, b: float) -> float:
+    """a / b in float32 for float32 a and b; a zero b gives IEEE's signed
+    inf, or nan for 0/0 and nan/0, where Python raises."""
+    if b != 0.0:
+        return _f32(a / b)
+    if a != a or a == 0.0:
+        return math.nan
+    return math.copysign(math.inf, a) * math.copysign(1.0, b)
+
+
+def _exp_f32(x: float) -> float:
+    """``exp_f32`` of a float32 Python float: e^x in float64, rounded once."""
+    try:
+        return _f32(math.exp(x))
+    except OverflowError:
+        return math.inf
+
+
+def _log_f32(x: float) -> float:
+    """``log_f32`` of a float32 Python float: ln x in float64, rounded
+    once; -inf at 0 and nan below it, as torch gives."""
+    if x > 0.0:
+        return _f32(math.log(x))
+    return -math.inf if x == 0.0 else math.nan
+
+
 def em_consts(params, N: int, poisson_cut: float | None = None) -> EmConsts:
     """``nmch_tpu.ops.em.em_path_law``'s constants, in its order of float32
-    operations, computed on the CPU.  params: float32 (8,) tensor (T, S_0,
-    v_0, r, k, rho, theta, sigma); poisson_cut None means 4000."""
-    row = em_consts_table(params.reshape(1, 8), N, poisson_cut)[0]
-    return EmConsts(*(float(v) for v in row))
+    operations, computed on the CPU.  params: tensor of 8 values (T, S_0,
+    v_0, r, k, rho, theta, sigma), read as float32; poisson_cut None means
+    4000.
+
+    One row of ``em_consts_table``, bit for bit, on Python floats: a few
+    microseconds, where the table's ~25 tensor operators take ~0.2 ms on
+    one row.  A +, -, * or / of float32 operands computed in float64 and
+    rounded once to float32 is the IEEE float32 result (53 >= 2 * 24 + 2
+    bits); the two transcendentals round once from float64, as there."""
+    p = params.detach()
+    if not p.is_cpu or p.dtype is not torch.float32:
+        p = p.to("cpu", torch.float32)
+    if p.ndim != 1:
+        p = p.reshape(8)
+    T, S_0, v_0, r, k, rho, theta, sigma = p.tolist()
+    f, div = _f32, _div_f32
+    dt = div(T, f(float(N)))        # torch rounds an int divisor to float32
+    exp_kdt = _exp_f32(f(-k * dt))
+    sig2 = f(sigma * sigma)
+    two_k = f(2.0 * k)
+    d = div(f(two_k * theta), sig2)
+    one_m = f(1.0 - exp_kdt)
+    sig2_one_m = f(sig2 * one_m)
+    lam_const = div(f(two_k * exp_kdt), sig2_one_m)
+    vfac = div(sig2_one_m, two_k)
+    log_S0 = _log_f32(S_0)
+    cut = f(POISSON_LARGE if poisson_cut is None else poisson_cut)
+    return EmConsts(v_0, S_0, lam_const, d, vfac, f(dt * 0.5), log_S0,
+                    f(log_S0 + f(r * T)), div(rho, sigma),
+                    f(f(k * theta) * T), k, f(1.0 - f(rho * rho)), cut)
 
 
 def exp_f32(x: torch.Tensor) -> torch.Tensor:

@@ -197,6 +197,110 @@ def test_em_consts_table_transcendentals_are_f64_rounded(N_):
                        torch.from_numpy(log_s0))
 
 
+def _random_param_rows(seed, n=4096):
+    """test_em_consts_table_transcendentals_are_f64_rounded's rows."""
+    rs = np.random.default_rng(seed)
+    f32 = np.float32
+    T, S_0, v_0, r = (rs.uniform(lo, hi, n).astype(f32) for lo, hi in (
+        (0.05, 5.0), (0.2, 5.0), (0.01, 0.5), (-0.05, 0.1)))
+    k, rho, theta, sigma = (rs.uniform(lo, hi, n).astype(f32) for lo, hi in (
+        (0.05, 8.0), (-0.95, 0.95), (0.005, 0.5), (0.05, 1.5)))
+    return torch.from_numpy(
+        np.stack([T, S_0, v_0, r, k, rho, theta, sigma], axis=1))
+
+
+def _assert_rows_equal(got, want):
+    """Bit for bit, a nan matching any nan (its sign is the host's)."""
+    got = torch.tensor(list(got), dtype=torch.float32)
+    both_nan = got.isnan() & want.isnan()
+    same = got.view(torch.int32) == want.view(torch.int32)
+    assert (same | both_nan).all(), (got, want)
+
+
+@pytest.mark.parametrize("cut", [None, 128.0])
+@pytest.mark.parametrize("N_", [1, 16, 1000, 2**24 + 1])
+def test_em_consts_is_its_table_row_bitwise(N_, cut):
+    """The scalar em_consts equals em_consts_table row for row, bit for
+    bit, on the 4096 random rows of each of the table's seeds (at N =
+    2^24 + 1 the float32 N is 2^24, not N)."""
+    pm = torch.cat([_random_param_rows(s) for s in (1, 16, 1000)])
+    table = tem.em_consts_table(pm, N_, cut)
+    got = torch.tensor([tem.em_consts(row, N_, cut) for row in pm],
+                       dtype=torch.float32)
+    assert torch.equal(got.view(torch.int32), table.view(torch.int32))
+
+
+_BASE = [1.0, 1.0, 0.1, 0.0, 0.5, -0.7, 0.1, 0.3]   # T S_0 v_0 r k rho th sig
+_EDGES = {                  # index in _BASE -> values that make edge outputs
+    7: [1e-20, 1e-23, 1e-30, 1e-45, 0.0, -0.0, 3e38],   # sigma^2 tiny / 0
+    4: [1e-30, 1e-45, 0.0, -0.0, -1e5, 3e38],       # 1 - e^{-k dt} is 0
+    5: [1.0, -1.0],                                 # 1 - rho^2 is 0
+    1: [0.0, -1.0, 1e-45],                          # ln S_0: -inf, nan
+    0: [0.0, 1e-45, 3e38],                          # dt: 0, subnormal
+    6: [0.0, 3e38],
+    2: [float("nan")],
+    3: [float("inf"), float("-inf")],
+}
+
+
+def _edge_rows():
+    for i, values in _EDGES.items():
+        for v in values:
+            row = list(_BASE)
+            row[i] = v
+            yield row
+
+
+@pytest.mark.parametrize("N_", [1, 1000, 2**30])
+@pytest.mark.parametrize("form", ["f32", "f64", "strided", "row"])
+def test_em_consts_edge_rows_match_table(N_, form):
+    """Rows whose constants are inf, nan, subnormal or zero: em_consts
+    raises nowhere and matches the table's bits (any nan for a nan); the
+    row given as float64, as a non-contiguous view, or as a (1, 8)."""
+    rows = torch.tensor(list(_edge_rows()), dtype=torch.float64)
+    table = tem.em_consts_table(rows, N_, 128.0)
+    for row, want in zip(rows, table):
+        if form == "f32":
+            row = row.float()
+        elif form == "strided":
+            row = torch.stack([row.float(), row.float()], dim=1)[:, 1]
+            assert not row.is_contiguous()
+        elif form == "row":
+            row = row.float().reshape(1, 8)
+        _assert_rows_equal(tem.em_consts(row, N_, 128.0), want)
+    kinds = (table.isinf().any(), table.isnan().any(),
+             ((table != 0) & (table.abs() < 2.0**-126)).any(),
+             (table == 0).any())
+    assert all(kinds)                           # the edges are reached
+
+
+def test_em_consts_dispatches_no_arithmetic():
+    """em_consts does its arithmetic on Python floats: the only aten
+    operators it dispatches convert ``params`` (detach, a copy to float32
+    on the CPU, a view of a (1, 8)), whatever the row's form; the table
+    it matches dispatches the arithmetic itself."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.add(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    pv = torch.tensor(_BASE)
+    for row in (pv, pv.double(), torch.stack([pv, pv], 1)[:, 0],
+                pv.reshape(1, 8), pv.clone().requires_grad_()):
+        with Record() as rec:
+            tem.em_consts(row, N, 128.0)
+        assert rec.ops <= {"detach", "_to_copy", "view"}, rec.ops
+    with Record() as rec:
+        tem.em_consts_table(pv.reshape(1, 8), N, 128.0)
+    assert {"mul", "div", "exp", "log"} <= rec.ops  # the mode sees arithmetic
+
+
 def test_poisson_cut_defaults_pinned():
     """None is curand's 4000 at the ops layer (em_consts, em_moments_scan,
     em_moments_cuda, poisson_from_stream) and FAST_POISSON_CUT = 128 at
