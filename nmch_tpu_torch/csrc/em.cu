@@ -48,8 +48,20 @@ namespace {
 using nmch::EmArgs;
 using nmch::kPathThreads;
 
+// The round schedule's count of its warp's draws (em_path.cuh's Count): its
+// loop's iterations, the same in every lane of the warp.
+struct WarpDraws {
+  int n = 0;
+  __device__ __forceinline__ void iteration() { ++n; }
+};
+
 // kRounds: the round schedule, else the step loops (em_path.cuh); a kernel
 // holds one of them, so that the step loops keep their own register count.
+// Each block's partials are 4 values: the payoffs' sum and sum of squares,
+// then its counts: the counter blocks its paths drew (their final counters,
+// which start at 0) and, on the round schedule, the block draws its warps
+// executed (lane 0's iterations); the step loops count no draws of their
+// warps (em_path.cuh) and give NaN there.
 template <int R, bool kConditional, bool kRounds>
 __global__ void __launch_bounds__(kPathThreads)
     em_paths(EmArgs a, double* __restrict__ partials,
@@ -57,14 +69,21 @@ __global__ void __launch_bounds__(kPathThreads)
   const uint32_t idx = blockIdx.x * kPathThreads + threadIdx.x;
   const uint32_t path = a.base_path + idx;
   uint32_t ctr;
+  WarpDraws warp;
   const float payoff =
-      kRounds ? nmch::em_path_rounds<R, kConditional>(a, path, ctr)
+      kRounds ? nmch::em_path_rounds<R, kConditional>(a, path, ctr,
+                                                       nmch::NoReport(), warp)
               : nmch::em_path_steps<R, kConditional>(a, path, ctr);
   if (payoff_out != nullptr) {
     payoff_out[idx] = payoff;
     ctr_out[idx] = ctr;
   }
-  nmch::block_sum_to_partials(payoff, partials);
+  const double draws = !kRounds ? __longlong_as_double(0x7FF8000000000000LL)
+                       : threadIdx.x % 32 == 0 ? (double)warp.n
+                                               : 0.0;
+  const double v[4] = {(double)payoff, (double)(payoff * payoff),
+                       (double)ctr, draws};
+  nmch::block_sums_to_partials<4>(v, partials);
 }
 
 template <int R, bool kConditional>
@@ -117,10 +136,13 @@ cudaError_t launch_em_law(const EmArgs& a, int64_t n_paths, double* partials,
 
 }  // namespace
 
-// (E[X], E[X^2]) of n_paths EM paths into out[0..1] (float64, device).
+// (E[X], E[X^2]) of n_paths EM paths into out[0..1], and the launch's
+// counts into out[2..3]: the counter blocks the paths drew and the block
+// draws their warps executed (float64, device; exact integers; the second
+// NaN where the launch ran the step loops, which do not count it).
 // consts: the 13 float32 values of ops/em.py::EmConsts, on the host.
 // rng: 0 = philox, 1 = threefry4; conditional: 0 or 1.
-// partials: float64[2 * n_paths / 128] scratch on the device. payoff_out
+// partials: float64[4 * n_paths / 128] scratch on the device. payoff_out
 // (float32[n_paths]) and ctr_out (uint32[n_paths]) are both null or both
 // device arrays that receive each path's payoff and final counter.
 // Launches on `stream` and does not synchronise. Returns the cudaError_t of
@@ -150,10 +172,12 @@ extern "C" int nmch_em_moments(const float* consts, uint32_t k0, uint32_t k1,
   const cudaError_t err = kLaunch[rng][conditional](a, n_blocks, partials,
                                                     payoff_out, ctr_out, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)nmch::launch_sum_partials(partials, n_blocks, n_paths, out, st);
+  return (int)nmch::launch_sum_counted_partials(partials, n_blocks, n_paths,
+                                                out, st);
 }
 
-// The conditional moments of nmch_em_moments into out[0..1], and each path's
+// The conditional moments of nmch_em_moments into out[0..1] (partials:
+// float64[2 * n_paths / 128]; no counts), and each path's
 // law, v_T into law_out[0 .. n_paths) and vI into law_out[n_paths .. 2 *
 // n_paths) (float32, device): the values ops/em.py::path_law_from_consts
 // returns, from the conditional build's schedule (em_rounds_pay). The

@@ -429,12 +429,27 @@ __device__ __forceinline__ void begin_step(EmLane& s, const EmArgs& a,
   }
 }
 
+// What the round schedule counts of its warp's draws (Count): iteration()
+// once an iteration of its loop, which every lane of the warp runs and in
+// which the warp draws one block for the lanes of its phase. NoCount's
+// iteration() compiles away (K4, the law build, K2-LRM); K2 counts (em.cu).
+// The step loops count nothing: every count tried there (a vote or an add
+// in their rarer rounds, a vote at the end of each step, shared-memory
+// slots) took K2's philox step build at cut 128 from ~5.0 to 5.2-6.1 ms on
+// an H100 (ptxas moved Philox's round keys off the uniform datapath, or the
+// build passed 40 registers, 12 blocks an SM).
+struct NoCount {
+  __device__ void iteration() {}
+};
+
 // Report: as em_path_steps; a lane reports its steps in order, each when
 // its Gamma phase settles the draw (accepted, or the kGammaMaxRounds
 // fallback).
-template <int R, bool kConditional, class Report = NoReport>
+template <int R, bool kConditional, class Report = NoReport,
+          class Count = NoCount>
 __device__ float em_path_rounds(const EmArgs& a, uint32_t path, uint32_t& ctr,
-                                Report&& rep = Report()) {
+                                Report&& rep = Report(),
+                                Count&& tally = Count()) {
   constexpr bool kPerStep = std::remove_reference_t<Report>::kPerStep;
   constexpr unsigned kWarpAll = 0xFFFFFFFFu;
   EmLane s;
@@ -451,6 +466,7 @@ __device__ float em_path_rounds(const EmArgs& a, uint32_t path, uint32_t& ctr,
     const unsigned in_gamma = __ballot_sync(kWarpAll, gamma);
     const unsigned in_step = __ballot_sync(kWarpAll, active && !gamma);
     if ((in_gamma | in_step) == 0u) break;
+    tally.iteration();
     uint32_t w[4];
     if (__popc(in_gamma) > __popc(in_step)) {
       // the Gamma phase: an MT round

@@ -37,7 +37,7 @@ import time
 
 import torch
 
-from .methods.base import resolve_device
+from .methods.base import host_values, resolve_device
 from .methods.em import NMCH_EM
 from .methods.fe import NMCH_FE
 from .ops.sweep import em_sweep_plain, fe_sweep_plain
@@ -94,7 +94,7 @@ def sweep(method_obj, name: str, out=sys.stdout, timed_reps: int = 1):
             _sync(method_obj.device)
             t0 = time.perf_counter()
             outs = [method_obj._moments(e) for e in epochs]
-            m, m2 = torch.stack(outs[-1]).tolist()   # waits for all
+            m, m2 = host_values(outs[-1])[:2]   # waits for all
             per_ms = (time.perf_counter() - t0) * 1e3 / timed_reps
             res = SimResult(m, m2, method_obj.cfg.n_paths,
                             exec_time_ms=per_ms)

@@ -44,6 +44,14 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def host_values(moments) -> list[float]:
+    """What ``NMCH._moments`` returned, on the host in one copy: [E[X],
+    E[X^2]], then its counts if it returned them."""
+    if not torch.is_tensor(moments):
+        moments = torch.stack(list(moments))
+    return moments.tolist()
+
+
 class NMCH(abc.ABC):
     """Base lifecycle + parameter container (reference NMCH.hpp:28-115)."""
 
@@ -51,6 +59,9 @@ class NMCH(abc.ABC):
     # True where (E[X], E[X^2]) are synthesized to encode a replicate CI
     # (the QMC engine) rather than accumulated over the paths
     synthesized_moments = False
+    # the names of the counts that ``_moments`` may return beside the
+    # moments (NaN: not counted)
+    count_names: tuple[str, ...] = ()
 
     def __init__(self, cfg: SimConfig, params: HestonParams, device):
         self.cfg = cfg
@@ -79,20 +90,25 @@ class NMCH(abc.ABC):
     @abc.abstractmethod
     def _moments(self, epoch: int):
         """(E[X], E[X^2]) of one pricing run at ``epoch``, as 0-dim
-        tensors on ``self.device``."""
+        tensors on ``self.device``; or one float64 vector on it, (E[X],
+        E[X^2]), then the counts that ``count_names`` names, if any."""
 
     def compute(self) -> SimResult:
         """One Monte Carlo pricing run; each call draws a fresh epoch.
         Spans (``utils/timing.py::span``): ``compute`` the whole call,
-        ``prepare`` the host's work until the kernel is queued."""
-        with span("compute"):
+        ``prepare`` the host's work until the kernel is queued.  The
+        ``compute`` record carries the counts of ``_moments``."""
+        with span("compute") as record:
             if self.streams is None:
                 raise RuntimeError("call init(seed) before compute()")
             epoch = self.streams.next_epoch()
             with Timer(self.device) as t:
                 with span("prepare"):
-                    m, m2 = self._moments(epoch)
-                m, m2 = torch.stack([m, m2]).tolist()
+                    moments = self._moments(epoch)
+                m, m2, *counts = host_values(moments)
+            if record is not None and counts:
+                record.counts = {name: int(v) for name, v in
+                                 zip(self.count_names, counts) if v == v}
             self.result = SimResult(
                 price=m, price_squared=m2, n_paths=self.cfg.n_paths,
                 exec_time_ms=t.ms, init_time_ms=self.init_time_ms,

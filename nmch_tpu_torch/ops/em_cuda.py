@@ -5,8 +5,12 @@ The counterpart of ``nmch_tpu/ops/em_pallas.py::em_moments_pallas``
 device the wrapper launches the kernel (one thread per path, then one
 block that sums the per-block partials) or raises; on the CPU it runs the
 plain version, ``ops/em.py::em_payoffs``, which computes the same payoffs
-operation for operation.  Parameters, ``poisson_cut`` and streams are
-runtime arguments, so a parameter sweep never rebuilds the kernel.
+operation for operation.  Each launch also counts its work beside the
+moments, in the same sums: the counter blocks its paths drew and, on the
+round schedule, the block draws its warps executed, whose ratio over 32 is
+the share of active lanes (``ops/em_schedule.py::active_lane_share``).
+Parameters, ``poisson_cut`` and streams are runtime arguments, so a
+parameter sweep never rebuilds the kernel.
 ``em_law_cuda`` launches K2's law build, the conditional kernel that also
 writes each path's (v_T, vI) for the pathwise Greeks.
 """
@@ -65,7 +69,7 @@ def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
                     n_paths: int, device, rng: str = "philox",
                     conditional: bool = False,
                     poisson_cut: float | None = None,
-                    per_path: bool = False):
+                    per_path: bool = False, counts: bool = False):
     """(E[X], E[X^2]) over n_paths EM paths, as float64 0-dim tensors on
     ``device``.
 
@@ -74,8 +78,17 @@ def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
     argument.  seed_words: the (k0, k1) u32 key pair; epoch and base_path:
     u32 stream coordinates (path p draws from counters (j, epoch,
     base_path + p, 0), j = 0, 1, ...).  poisson_cut None means 4000, the
-    ops layer's default.  per_path=True also returns each path's payoff
-    (float32) and final counter (int64), in (n_paths/128, 128) layout.
+    ops layer's default and the reference's law (curand's own switch to
+    the normal); lambda at and above it takes the rounded normal, PTRS
+    below.  per_path=True also returns each path's payoff (float32) and
+    final counter (int64), in (n_paths/128, 128) layout.  counts=True
+    returns, in place of the two moments, one float64 vector (4,) on
+    ``device``: E[X], E[X^2], then the launch's counts, the counter
+    blocks its paths drew (the sum of their final counters) and the block
+    draws its warps executed (each counted once a warp; NaN where the
+    launch ran the step loops, which do not count them,
+    ``csrc/em_path.cuh``); on the CPU, whose plain version runs no warps,
+    the vector holds the moments alone.
     Each launch adds one to ``em_moments_cuda.launches`` and to
     ``em_moments_cuda.variant_launches[variant_name(rng, conditional)]``.
     """
@@ -88,30 +101,34 @@ def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
                                  epoch, k0, k1, rng=rng,
                                  conditional=conditional,
                                  poisson_cut=poisson_cut)
-        m, m2 = moments_f64(payoff)
-        return (m, m2, payoff, ctr) if per_path else (m, m2)
-
-    with span("prepare.consts"):
-        consts = (ctypes.c_float * 13)(*em_consts(params, N, poisson_cut))
-    partials = torch.empty(2 * (n_paths // LANES), dtype=torch.float64,
-                           device=device)
-    out = torch.empty(2, dtype=torch.float64, device=device)
-    payoff = ctr = None
-    if per_path:
-        payoff = torch.empty(n_paths // LANES, LANES, dtype=torch.float32,
-                             device=device)
-        ctr = torch.empty(n_paths // LANES, LANES, dtype=torch.int32,
-                          device=device)
-    name = variant_name(rng, conditional)
-    call_kernel("nmch_em_moments", name, device, consts, k0, k1, epoch,
-                base_path, N, n_paths, RNGS.index(rng),
-                int(bool(conditional)), partials.data_ptr(), out.data_ptr(),
-                None if payoff is None else payoff.data_ptr(),
-                None if ctr is None else ctr.data_ptr())
-    count_launch(em_moments_cuda, name)
-    if per_path:
-        return out[0], out[1], payoff, ctr.to(torch.int64) & 0xFFFFFFFF
-    return out[0], out[1]
+        out = torch.stack(moments_f64(payoff))
+    else:
+        with span("prepare.consts"):
+            consts = (ctypes.c_float * 13)(*em_consts(params, N,
+                                                      poisson_cut))
+        partials = torch.empty(4 * (n_paths // LANES), dtype=torch.float64,
+                               device=device)
+        out = torch.empty(4, dtype=torch.float64, device=device)
+        payoff = ctr = None
+        if per_path:
+            payoff = torch.empty(n_paths // LANES, LANES,
+                                 dtype=torch.float32, device=device)
+            ctr = torch.empty(n_paths // LANES, LANES, dtype=torch.int32,
+                              device=device)
+        name = variant_name(rng, conditional)
+        call_kernel("nmch_em_moments", name, device, consts, k0, k1, epoch,
+                    base_path, N, n_paths, RNGS.index(rng),
+                    int(bool(conditional)), partials.data_ptr(),
+                    out.data_ptr(),
+                    None if payoff is None else payoff.data_ptr(),
+                    None if ctr is None else ctr.data_ptr())
+        count_launch(em_moments_cuda, name)
+        if per_path:
+            ctr = ctr.to(torch.int64) & 0xFFFFFFFF
+    moments = out if counts else (out[0], out[1])
+    if not per_path:
+        return moments
+    return (moments, payoff, ctr) if counts else (*moments, payoff, ctr)
 
 
 em_moments_cuda.launches = 0

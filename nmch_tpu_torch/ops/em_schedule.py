@@ -61,9 +61,10 @@ class _Words:
     a lane's counter rises by at most one an iteration)."""
     AHEAD = 64
 
-    def __init__(self, draw4s, n: int):
-        self.draw4s, self.lane = draw4s, torch.arange(n)
-        self.base = torch.full((n,), -self.AHEAD - 1, dtype=torch.int64)
+    def __init__(self, draw4s, n: int, device):
+        self.draw4s, self.lane = draw4s, torch.arange(n, device=device)
+        self.base = torch.full((n,), -self.AHEAD - 1, dtype=torch.int64,
+                               device=device)
         self.tab = None
 
     def at(self, ctr):
@@ -71,7 +72,7 @@ class _Words:
         off = ctr - self.base
         if bool((off >= self.AHEAD).any()):
             self.base = ctr.clone()
-            k = torch.arange(self.AHEAD).unsqueeze(1)
+            k = torch.arange(self.AHEAD, device=ctr.device).unsqueeze(1)
             self.tab = torch.stack(self.draw4s(ctr + k)[:4])
             off = ctr - self.base
         return self.tab[:, off, self.lane].unbind(0)
@@ -90,15 +91,19 @@ def emulate(c: EmConsts, N: int, path, epoch, k0: int, k1: int, rng: str,
     index, d + n and the draw) and whose ``end(v_T, vI_sum)`` is called
     once at the end (em_path.cuh's per-step report).  Returns (payoff
     float32, final counter int64, each warp's iterations, each lane's
-    iterations spent waiting)."""
-    n = path.numel()
+    iterations spent waiting), on ``path``'s device (on a card, its
+    float32 functions are the kernels')."""
+    n, dev = path.numel(), path.device
     words = _Words(make_stream_draw4(rng, epoch, path,
-                                     torch.zeros_like(path), k0, k1), n)
-    zf = torch.zeros(n)
-    zi = torch.zeros(n, dtype=torch.int64)
-    rounds = torch.as_tensor(rounds, dtype=torch.bool).expand(n)
+                                     torch.zeros_like(path), k0, k1), n,
+                   dev)
+    zf = torch.zeros(n, device=dev)
+    zi = torch.zeros(n, dtype=torch.int64, device=dev)
+    rounds = torch.as_tensor(rounds, dtype=torch.bool,
+                             device=dev).expand(n)
     rounds_warp = rounds.view(-1, WARP)[:, 0].repeat_interleave(WARP)
-    step_key = torch.tensor([_STEP_KEY[j] for j in range(DONE + 1)])
+    step_key = torch.tensor([_STEP_KEY[j] for j in range(DONE + 1)],
+                            device=dev)
     s = dict(Vt=zf + c.v_0, vI=zf.clone(), ctr=zi.clone(), i=zi.clone(),
              stage=zi.clone(), rnd=zi.clone(), payoff=zf.clone(),
              **{f"q{j}": zf.clone() for j in range(6)})
@@ -140,9 +145,9 @@ def emulate(c: EmConsts, N: int, path, epoch, k0: int, k1: int, rng: str,
     def gamma_fallback():
         return (s["q0"] + torch.where(s["q0"] < 1.0, 1.0, 0.0)) * s["q3"]
 
-    begin_step(torch.ones(n, dtype=torch.bool))
+    begin_step(torch.ones(n, dtype=torch.bool, device=dev))
     waits = zi.clone()
-    warp_iters = torch.zeros(n // WARP, dtype=torch.int64)
+    warp_iters = torch.zeros(n // WARP, dtype=torch.int64, device=dev)
     while True:
         warp_active = (s["stage"] != DONE).view(-1, WARP).any(1)
         if not bool(warp_active.any()):
@@ -175,7 +180,7 @@ def emulate(c: EmConsts, N: int, path, epoch, k0: int, k1: int, rng: str,
         lg = torch.log(torch.where(ptrs, V * q3 / (q2 / (us * us) + q1),
                                    uniform_open01(w0)))
         g = sqrt_f32(-2.0 * lg) * sincos_2pi(uniform_open01(w1))[0]
-        pdone = torch.zeros(n, dtype=torch.bool)
+        pdone = torch.zeros(n, dtype=torch.bool, device=dev)
         gdone = pdone.clone()
         val = zf.clone()
         kn = drawing & (stage == KNUTH)

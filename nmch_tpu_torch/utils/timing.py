@@ -19,24 +19,31 @@ from __future__ import annotations
 import contextlib
 import subprocess
 import time
+import types
 
 import torch
 import torch.autograd.profiler as _profiler
 
 SPAN_LIMIT = 1 << 20        # records kept; later spans are counted, not kept
+_NO_COUNTS = types.MappingProxyType({})     # a record's counts until set
 
 
 class SpanRecord:
     """One span: ``name``; ``start_ns`` and ``end_ns`` (``time.time_ns()``;
     ``end_ns`` None while it is open); ``parent``, the index in
-    ``spans()`` of the span it opened inside, -1 at the top; and
+    ``spans()`` of the span it opened inside, -1 at the top;
     ``request``, a per-process number that a top-level span takes when it
-    opens and its descendants share."""
+    opens and its descendants share; and ``counts``, {name: int} of the
+    work the span's code counted (``compute``: K2's ``k2.blocks``, and
+    ``k2.warp_iters`` where K2 ran its round schedule; methods/base.py),
+    empty for every other span."""
 
-    __slots__ = ("name", "start_ns", "end_ns", "parent", "request")
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "request",
+                 "counts")
 
     def __init__(self, name: str):
         self.name = name
+        self.counts = _NO_COUNTS
 
     def __enter__(self):
         rec = _recorder
