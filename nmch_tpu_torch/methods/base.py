@@ -46,7 +46,10 @@ def resolve_device(device) -> torch.device:
 
 def host_values(moments) -> list[float]:
     """What ``NMCH._moments`` returned, on the host in one copy: [E[X],
-    E[X^2]], then its counts if it returned them."""
+    E[X^2]], then its counts if it returned them.  A vector is copied as
+    it is; a pair of 0-dim tensors is stacked first, which queues one more
+    operation on the device.  A pricer's bound launch brings its ``out``
+    by ``BoundLaunch.fetch`` instead (``NMCH.compute``)."""
     if not torch.is_tensor(moments):
         moments = torch.stack(list(moments))
     return moments.tolist()
@@ -70,6 +73,11 @@ class NMCH(abc.ABC):
         self.streams: PathStreams | None = None
         self.result: SimResult | None = None
         self.init_time_ms = float("nan")
+        # the kernel launch a subclass binds on a card (ops/fe_cuda.py::
+        # BoundLaunch), or None where its engine, rng or device takes none
+        self._launch = None
+        self._pv = torch.empty(8, dtype=torch.float32)
+        self._pv_np = self._pv.numpy()
 
     @property
     def K(self) -> float:
@@ -87,6 +95,13 @@ class NMCH(abc.ABC):
             self.streams = PathStreams(seed=seed, n_paths=self.cfg.n_paths)
         self.init_time_ms = t.ms
 
+    def _kernel_params(self) -> torch.Tensor:
+        """``params.as_tensor("cpu")`` as the kernel wrappers take it,
+        written in each call into the pricer's own float32 (8,) buffer
+        (the same rounding to float32): valid until the next call."""
+        self._pv_np[:] = self.params.values()
+        return self._pv
+
     @abc.abstractmethod
     def _moments(self, epoch: int):
         """(E[X], E[X^2]) of one pricing run at ``epoch``, as 0-dim
@@ -95,20 +110,49 @@ class NMCH(abc.ABC):
 
     def compute(self) -> SimResult:
         """One Monte Carlo pricing run; each call draws a fresh epoch.
+
+        On a card, a pricer whose engine and rng take a bound launch
+        (``ops/fe_cuda.py::BoundLaunch``: ``NMCH_FE`` with engine "cuda"
+        and a counter rng, ``NMCH_EM`` with engine "cuda") binds it in its
+        first call and again where the static arguments changed (a new
+        seed, cfg, device or variant; a setter of the Heston parameters
+        does not).  The launch keeps the validated static arguments, the
+        library's entry point, the device's index, the ``partials`` and
+        ``out`` buffers and a pinned host buffer.  Each call then does
+        its own work only: the epoch, the parameters as the kernel's
+        arguments (EM's loop constants), the current stream, one foreign
+        call, one copy of ``out`` into the pinned buffer, one wait on the
+        stream, the floats.  Any other return of ``_moments`` is brought
+        to the host by ``host_values``.  ``exec_time_ms`` spans the call
+        from a device synchronisation to the wait for its result.
+
         Spans (``utils/timing.py::span``): ``compute`` the whole call,
         ``prepare`` the host's work until the kernel is queued.  The
-        ``compute`` record carries the counts of ``_moments``."""
+        ``compute`` record carries the counts of ``_moments`` and, for a
+        pricer that takes a bound launch, ``launch.bound``: 1 where the
+        call bound it anew, 0 where it reused it."""
         with span("compute") as record:
             if self.streams is None:
                 raise RuntimeError("call init(seed) before compute()")
             epoch = self.streams.next_epoch()
+            launch = self._launch
+            binds = None if launch is None else launch.binds
             with Timer(self.device) as t:
                 with span("prepare"):
                     moments = self._moments(epoch)
-                m, m2, *counts = host_values(moments)
-            if record is not None and counts:
-                record.counts = {name: int(v) for name, v in
-                                 zip(self.count_names, counts) if v == v}
+                if launch is not None and moments is launch.out:
+                    values = launch.fetch()
+                    t.waited = True
+                else:
+                    values = host_values(moments)
+            m, m2, *counts = values
+            if record is not None:
+                found = {name: int(v) for name, v in
+                         zip(self.count_names, counts) if v == v}
+                if launch is not None:
+                    found["launch.bound"] = int(launch.binds != binds)
+                if found:
+                    record.counts = found
             self.result = SimResult(
                 price=m, price_squared=m2, n_paths=self.cfg.n_paths,
                 exec_time_ms=t.ms, init_time_ms=self.init_time_ms,
@@ -116,8 +160,11 @@ class NMCH(abc.ABC):
             return self.result
 
     def finalize(self) -> None:
-        """Release resources (the reference frees sum/states)."""
+        """Release resources (the reference frees sum/states), the bound
+        launch's buffers included."""
         self.streams = None
+        if self._launch is not None:
+            self._launch.release()
 
     # -- parameter setters (exploration sweep) ----------------------------
     def set_k(self, k: float) -> None:

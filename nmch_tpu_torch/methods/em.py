@@ -24,6 +24,7 @@ import torch
 from ..ops.em import FAST_POISSON_CUT, em_moments_scan
 from ..ops.em_cuda import em_moments_cuda
 from ..ops.fe import path_index_grid
+from ..ops.fe_cuda import BoundLaunch
 from ..ops.sampling import STATEFUL_RNGS
 from ..params import HestonParams, SimConfig
 from ..rng.streams import check_stateful_epoch, check_stateful_paths
@@ -74,15 +75,18 @@ class NMCH_EM(NMCH):
         self.conditional = bool(conditional)
         self.poisson_cut = (FAST_POISSON_CUT if poisson_cut is None
                             else float(poisson_cut))
+        if engine == "cuda" and self.device.type == "cuda":
+            self._launch = BoundLaunch()
 
     def _moments(self, epoch: int):
         k0, k1 = self.streams.key_words
         if self.engine == "cuda":
             return em_moments_cuda(
-                self.params.as_tensor("cpu"), (k0, k1), epoch, 0,
+                self._kernel_params(), (k0, k1), epoch, 0,
                 N=self.cfg.N, n_paths=self.cfg.n_paths, device=self.device,
                 rng=self.rng, conditional=self.conditional,
-                poisson_cut=self.poisson_cut, counts=True)
+                poisson_cut=self.poisson_cut, counts=True,
+                launch=self._launch)
         seed = None
         if self.rng in STATEFUL_RNGS:
             check_stateful_epoch(self.rng, epoch)

@@ -32,7 +32,7 @@ import torch
 
 from ..ops.fe import DEVICE_NOT_TPU, fe_moments_rot_scan, fe_moments_scan, \
     path_index_grid
-from ..ops.fe_cuda import fe_moments_cuda, resolve_rot
+from ..ops.fe_cuda import RNGS, BoundLaunch, fe_moments_cuda, resolve_rot
 from ..ops.fe_qmc import SCRAMBLES, fe_moments_qmc
 from ..ops.sampling import STATEFUL_RNGS
 from ..params import HestonParams, SimConfig
@@ -106,6 +106,8 @@ class NMCH_FE(NMCH):
         self.antithetic = rot >= 2
         self.scramble = scramble
         self.synthesized_moments = engine == "qmc"
+        if engine == "cuda" and rng in RNGS and self.device.type == "cuda":
+            self._launch = BoundLaunch()
         self._drop_state()
 
     def _drop_state(self) -> None:
@@ -139,9 +141,9 @@ class NMCH_FE(NMCH):
                 scramble=self.scramble, device=self.device)
         if self.engine == "cuda":
             return fe_moments_cuda(
-                self.params.as_tensor("cpu"), (k0, k1), epoch, 0,
+                self._kernel_params(), (k0, k1), epoch, 0,
                 N=self.cfg.N, n_paths=self.cfg.n_paths, device=self.device,
-                rng=self.rng, rot=self.rot)
+                rng=self.rng, rot=self.rot, launch=self._launch)
         pidx = path_index_grid(self.cfg.n_paths, device=self.device)
         pv = self.params.as_tensor(self.device)
         if self.rot > 1:

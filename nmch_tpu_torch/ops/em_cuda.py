@@ -26,8 +26,8 @@ from ..utils.timing import span
 from .em import em_conditional_payoff, em_consts, em_payoffs, \
     path_law_from_consts
 from .fe import LANES, moments_f64, path_index_grid
-from .fe_cuda import COUNTER_RNGS, call_kernel, check_args, check_rng, \
-    count_launch
+from .fe_cuda import COUNTER_RNGS, BoundLaunch, call_kernel, check_args, \
+    check_params, check_rng, check_u32, count_launch, device_key
 
 # K2's generators; their index is the kernel's `rng` argument
 # (COUNTER_RNGS leads fe_cuda.RNGS)
@@ -69,7 +69,8 @@ def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
                     n_paths: int, device, rng: str = "philox",
                     conditional: bool = False,
                     poisson_cut: float | None = None,
-                    per_path: bool = False, counts: bool = False):
+                    per_path: bool = False, counts: bool = False,
+                    launch: BoundLaunch | None = None):
     """(E[X], E[X^2]) over n_paths EM paths, as float64 0-dim tensors on
     ``device``.
 
@@ -91,7 +92,20 @@ def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
     the vector holds the moments alone.
     Each launch adds one to ``em_moments_cuda.launches`` and to
     ``em_moments_cuda.variant_launches[variant_name(rng, conditional)]``.
+
+    launch: a pricer's ``fe_cuda.BoundLaunch``, used as
+    ``fe_moments_cuda`` uses it (static arguments: all but params and the
+    epoch), where per_path is False.  Each call still computes its loop
+    constants from params.  The return is then the launch's ``out``, the
+    vector (4,) that counts=True returns, which the next launch
+    overwrites.
     """
+    bound = launch is not None and not per_path
+    if bound:
+        key = (tuple(seed_words), base_path, N, n_paths, device_key(device),
+               rng, conditional, poisson_cut)
+        if key == launch.key:
+            return _em_bound(launch, params, epoch, N, poisson_cut)
     device, N, n_paths, k0, k1, epoch, base_path = check_args(
         params, seed_words, epoch, base_path, N, n_paths, device)
     check_rng(rng, "EM")
@@ -102,10 +116,15 @@ def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
                                  conditional=conditional,
                                  poisson_cut=poisson_cut)
         out = torch.stack(moments_f64(payoff))
+    elif bound:
+        launch.bind(key, "nmch_em_moments", variant_name(rng, conditional),
+                    device, (k0, k1), (base_path, N, n_paths,
+                                       RNGS.index(rng),
+                                       int(bool(conditional))),
+                    4 * (n_paths // LANES), 4, after=(None, None))
+        return _em_bound(launch, params, epoch, N, poisson_cut)
     else:
-        with span("prepare.consts"):
-            consts = (ctypes.c_float * 13)(*em_consts(params, N,
-                                                      poisson_cut))
+        consts = _consts(params, N, poisson_cut)
         partials = torch.empty(4 * (n_paths // LANES), dtype=torch.float64,
                                device=device)
         out = torch.empty(4, dtype=torch.float64, device=device)
@@ -133,6 +152,22 @@ def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
 
 em_moments_cuda.launches = 0
 em_moments_cuda.variant_launches = {}
+
+
+def _consts(params, N, poisson_cut):
+    """K2's loop constants of ``params`` as its float argument array (span
+    ``prepare.consts``)."""
+    with span("prepare.consts"):
+        return (ctypes.c_float * 13)(*em_consts(params, N, poisson_cut))
+
+
+def _em_bound(launch: BoundLaunch, params, epoch, N, poisson_cut):
+    """K2 through a bound launch: the call's loop constants and epoch."""
+    check_params(params)
+    launch.enqueue((_consts(params, N, poisson_cut),),
+                   check_u32("epoch", epoch))
+    count_launch(em_moments_cuda, launch.name)
+    return launch.out
 
 
 def em_law_cuda(params, seed_words, epoch, base_path, *, N: int,

@@ -12,6 +12,11 @@ same payoffs operation for operation.  Parameters and streams are runtime
 arguments, so a parameter sweep never rebuilds the kernel.
 ``fe_moments_pallas``'s TPU tuning knobs (``tile_rows``, ``unroll``,
 ``interpret``) are not taken.
+
+A pricer passes its ``BoundLaunch`` (``launch=``): the launch's static
+arguments, buffers and entry point are then validated, allocated and
+looked up once, and each call converts only its parameters and epoch.
+``call_kernel`` is the launch every other wrapper uses.
 """
 
 from __future__ import annotations
@@ -107,14 +112,20 @@ def check_sizes(N, n_paths, device):
     return device, N, n_paths
 
 
-def check_args(params, seed_words, epoch, base_path, N, n_paths, device):
-    """Validate the arguments of a kernel wrapper; returns (device, N,
-    n_paths, k0, k1, epoch, base_path), the integers as Python ints."""
-    device, N, n_paths = check_sizes(N, n_paths, device)
+def check_params(params) -> None:
+    """Raise unless ``params`` is a float32 tensor of shape (8,) on the
+    CPU."""
     if not isinstance(params, torch.Tensor) or params.dtype != torch.float32 \
             or params.shape != (8,) or params.device.type != "cpu":
         raise ValueError("params must be a float32 tensor of shape (8,) on "
                          "the CPU")
+
+
+def check_args(params, seed_words, epoch, base_path, N, n_paths, device):
+    """Validate the arguments of a kernel wrapper; returns (device, N,
+    n_paths, k0, k1, epoch, base_path), the integers as Python ints."""
+    device, N, n_paths = check_sizes(N, n_paths, device)
+    check_params(params)
     k0, k1 = (check_u32("seed word", w) for w in seed_words)
     return (device, N, n_paths, k0, k1, check_u32("epoch", epoch),
             check_u32("base_path", base_path))
@@ -126,24 +137,128 @@ def count_launch(fn, name: str) -> None:
     fn.variant_launches[name] = fn.variant_launches.get(name, 0) + 1
 
 
+def _on_current_stream(fn, index: int, args):
+    """``fn(*args, stream)`` on the current stream of CUDA device
+    ``index``; returns (its return code, that stream).  The device guard is
+    entered only where ``index`` is not the current device."""
+    if torch.cuda.current_device() == index:
+        stream = torch.cuda.current_stream(index)
+        return fn(*args, stream.cuda_stream), stream
+    with torch.cuda.device(index):
+        stream = torch.cuda.current_stream(index)
+        return fn(*args, stream.cuda_stream), stream
+
+
+def _raise_on_error(rc: int, name: str) -> None:
+    if rc != 0:
+        lib, _ = load_library()
+        msg = lib.nmch_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def device_key(device) -> tuple:
+    """(type, index) of the device a wrapper called with ``device`` runs
+    on now: a CUDA device that names no index is the current one."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return device.type, torch.cuda.current_device()
+    return device.type, device.index
+
+
 def call_kernel(entry: str, name: str, device, *args) -> None:
     """Call the kernel library's C entry point ``entry`` with ``args`` and
     the device's current stream; raise if it returns a CUDA error.  Span
     ``prepare.enqueue``: the library lookup, the stream and the call."""
     with span("prepare.enqueue"):
         lib, _ = load_library()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = getattr(lib, entry)(*args, stream)
-    if rc != 0:
-        msg = lib.nmch_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+        rc, _ = _on_current_stream(getattr(lib, entry),
+                                   device_key(device)[1], args)
+    _raise_on_error(rc, name)
+
+
+def launch_buffers(n_partials: int, n_out: int, index: int):
+    """A bound launch's buffers: float64 ``partials`` and ``out`` on CUDA
+    device ``index``, and a pinned host buffer for ``out``."""
+    device = torch.device("cuda", index)
+    return (torch.empty(n_partials, dtype=torch.float64, device=device),
+            torch.empty(n_out, dtype=torch.float64, device=device),
+            torch.empty(n_out, dtype=torch.float64, pin_memory=True))
+
+
+class BoundLaunch:
+    """One pricer's kernel launch, bound once and reused by every call
+    whose static arguments are those it was bound for.
+
+    A wrapper given the launch (``fe_moments_cuda(..., launch=)``,
+    ``em_moments_cuda(..., launch=)``) compares the call's static
+    arguments, as passed, with ``key`` (one tuple comparison) and binds
+    anew where they differ: the seed words, base_path, N, n_paths, the
+    device and the kernel variant.  Binding validates them and keeps the
+    library's entry point, the device's index, the variant's name, the
+    converted arguments, the ``partials`` and ``out`` buffers on the card
+    and a pinned host buffer for ``out``; ``binds`` counts the bindings.
+    Each call then passes only what it brings (the parameters or their
+    loop constants, and the epoch) to ``enqueue``, and ``fetch`` brings
+    ``out`` to the host in one copy and one wait.  The buffers are reused
+    from call to call: each call waits for its launch before the next one
+    is queued (``NMCH.compute``), or queues its launches in one stream's
+    order."""
+
+    def __init__(self):
+        self.key = None
+        self.binds = 0
+        self.release()
+
+    def bind(self, key, entry: str, name: str, device, head, tail,
+             n_partials: int, n_out: int, after=()) -> None:
+        """Bind the library's ``entry`` on ``device`` (a validated CUDA
+        device) for the static arguments ``key``: a call passes its lead
+        arguments, then ``head``, the epoch, ``tail``, the partials' and
+        out's pointers, ``after`` and the stream."""
+        self.release()
+        lib, _ = load_library()
+        self.fn = getattr(lib, entry)
+        self.name = name
+        self.index = device_key(device)[1]
+        self.partials, self.out, self.host = launch_buffers(
+            n_partials, n_out, self.index)
+        self._host = self.host.numpy()
+        self.head = tuple(head)
+        self.tail = (*tail, self.partials.data_ptr(), self.out.data_ptr(),
+                     *after)
+        self.key = key
+        self.binds += 1
+
+    def enqueue(self, lead, epoch: int) -> None:
+        """Queue the launch for this call's ``lead`` arguments and
+        ``epoch`` on the device's current stream (span
+        ``prepare.enqueue``); raise if the library returns a CUDA
+        error."""
+        with span("prepare.enqueue"):
+            rc, self.stream = _on_current_stream(
+                self.fn, self.index, (*lead, *self.head, epoch, *self.tail))
+        _raise_on_error(rc, self.name)
+
+    def fetch(self) -> list[float]:
+        """``out`` of the last launch as Python floats: one asynchronous
+        copy into the pinned buffer on the launch's stream, and one wait
+        for that stream."""
+        self.host.copy_(self.out, non_blocking=True)
+        self.stream.synchronize()
+        return self._host.tolist()
+
+    def release(self) -> None:
+        """Drop the buffers and the key: the next call binds anew."""
+        self.key = None
+        self.fn = self.stream = None
+        self.partials = self.out = self.host = self._host = None
 
 
 def fe_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
                     n_paths: int, device, rng: str = "philox",
                     rot: int | None = None, antithetic: bool = False,
-                    box: str = "hc", fast_sqrt: bool = False):
+                    box: str = "hc", fast_sqrt: bool = False,
+                    launch: BoundLaunch | None = None):
     """(E[Y], E[Y^2]) over n_paths FE path groups, as float64 0-dim
     tensors on ``device``; Y is the mean payoff of a group's rot coupled
     copies (Y = X at rot 1).
@@ -156,7 +271,20 @@ def fe_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
     rng "device" for its "tpu" (``check_variant``).  Each launch adds one
     to ``fe_moments_cuda.launches`` and to
     ``fe_moments_cuda.variant_launches[variant_name(rng, rot, box,
-    fast_sqrt)]``."""
+    fast_sqrt)]``.
+
+    launch: a pricer's ``BoundLaunch``.  On a CUDA device the call then
+    reuses it where its static arguments (all but params and epoch) are
+    those it was bound for, and binds it anew where they are not; only
+    params and the epoch are converted in each call.  The return is then
+    the launch's ``out``, one float64 vector (2,) on ``device``, (E[Y],
+    E[Y^2]), which the next launch overwrites.  On the CPU the launch is
+    left unbound and the plain version runs."""
+    if launch is not None:
+        key = (tuple(seed_words), base_path, N, n_paths, device_key(device),
+               rng, rot, antithetic, box, fast_sqrt)
+        if key == launch.key:
+            return _fe_bound(launch, params, epoch)
     device, N, n_paths, k0, k1, epoch, base_path = check_args(
         params, seed_words, epoch, base_path, N, n_paths, device)
     rot = check_variant(rng, rot, antithetic, box, fast_sqrt)
@@ -166,15 +294,27 @@ def fe_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
             rng=rng, rot=rot, box=box, fast_sqrt=fast_sqrt)
 
     name = variant_name(rng, rot, box, fast_sqrt)
+    tail = (base_path, N, n_paths, RNGS.index(rng), rot, BOXES.index(box),
+            int(bool(fast_sqrt)))
+    if launch is not None:
+        launch.bind(key, "nmch_fe_moments", name, device, (k0, k1), tail,
+                    2 * (n_paths // LANES), 2)
+        return _fe_bound(launch, params, epoch)
     partials = torch.empty(2 * (n_paths // LANES), dtype=torch.float64,
                            device=device)
     out = torch.empty(2, dtype=torch.float64, device=device)
     call_kernel("nmch_fe_moments", name, device, *params.tolist(),
-                k0, k1, epoch, base_path, N, n_paths, RNGS.index(rng), rot,
-                BOXES.index(box), int(bool(fast_sqrt)), partials.data_ptr(),
-                out.data_ptr())
+                k0, k1, epoch, *tail, partials.data_ptr(), out.data_ptr())
     count_launch(fe_moments_cuda, name)
     return out[0], out[1]
+
+
+def _fe_bound(launch: BoundLaunch, params, epoch):
+    """K1 through a bound launch: the call's parameters and epoch."""
+    check_params(params)
+    launch.enqueue(params.tolist(), check_u32("epoch", epoch))
+    count_launch(fe_moments_cuda, launch.name)
+    return launch.out
 
 
 fe_moments_cuda.launches = 0

@@ -47,11 +47,16 @@ class HestonParams:
     def replace(self, **kw: Any) -> "HestonParams":
         return dataclasses.replace(self, **kw)
 
+    def values(self) -> tuple[float, ...]:
+        """The 8 values in the kernel order (T, S_0, v_0, r, k, rho, theta,
+        sigma)."""
+        return (self.T, self.S_0, self.v_0, self.r, self.k, self.rho,
+                self.theta, self.sigma)
+
     def as_array(self) -> np.ndarray:
         """f32[8] in the kernel order (T, S_0, v_0, r, k, rho, theta,
         sigma) — the layout ``nmch_tpu.HestonParams.as_array`` uses."""
-        return np.array([self.T, self.S_0, self.v_0, self.r, self.k,
-                         self.rho, self.theta, self.sigma], dtype=np.float32)
+        return np.array(self.values(), dtype=np.float32)
 
     def as_tensor(self, device) -> torch.Tensor:
         """``as_array()`` as a float32 tensor on ``device``."""

@@ -22,6 +22,10 @@ class PathStreams:
     seed: int
     n_paths: int
     epoch: int = 0
+    # (seed, its key words): key_words splits the seed again only when the
+    # seed changed
+    _words: tuple = dataclasses.field(default=(None, None), init=False,
+                                      repr=False, compare=False)
 
     def init(self, seed: int) -> None:
         """Reference ``init(seed)``: restart all streams from scratch."""
@@ -36,7 +40,12 @@ class PathStreams:
 
     @property
     def key_words(self):
-        return split_seed(self.seed)
+        """``split_seed(seed)``: the (k0, k1) u32 key words."""
+        seed, words = self._words
+        if seed is None or seed != self.seed:
+            words = split_seed(self.seed)
+            self._words = (self.seed, words)
+        return words
 
     def state_dict(self) -> dict:
         return {"seed": self.seed, "n_paths": self.n_paths,

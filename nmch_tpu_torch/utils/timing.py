@@ -35,8 +35,9 @@ class SpanRecord:
     ``request``, a per-process number that a top-level span takes when it
     opens and its descendants share; and ``counts``, {name: int} of the
     work the span's code counted (``compute``: K2's ``k2.blocks``, and
-    ``k2.warp_iters`` where K2 ran its round schedule; methods/base.py),
-    empty for every other span."""
+    ``k2.warp_iters`` where K2 ran its round schedule; ``launch.bound``, 1
+    where the call bound its pricer's launch anew and 0 where it reused it;
+    methods/base.py), empty for every other span."""
 
     __slots__ = ("name", "start_ns", "end_ns", "parent", "request",
                  "counts")
@@ -107,7 +108,10 @@ def spans_dropped() -> int:
 
 
 class Timer:
-    """``with Timer(device) as t: ...`` then ``t.ms``."""
+    """``with Timer(device) as t: ...`` then ``t.ms``.  A block that has
+    itself waited for every device operation it queued (all on one stream,
+    waited for on that stream) sets ``t.waited = True``, and the exit does
+    not synchronise the device again."""
 
     def __init__(self, device=None):
         self._device = None if device is None else torch.device(device)
@@ -118,11 +122,13 @@ class Timer:
 
     def __enter__(self):
         self._sync()
+        self.waited = False
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        self._sync()
+        if not self.waited:
+            self._sync()
         self.ms = (time.perf_counter() - self._t0) * 1e3
         return False
 

@@ -104,6 +104,7 @@ def test_enqueue_span_inside_its_caller(monkeypatch):
             return 0
 
     monkeypatch.setattr(fe_cuda, "load_library", lambda: (Lib(), None))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
