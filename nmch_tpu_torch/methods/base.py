@@ -24,6 +24,7 @@ import json
 
 import torch
 
+from ..ops.launch import check_device
 from ..oracle.black_scholes import reference_true_price
 from ..params import HestonParams, SimConfig
 from ..results import SimResult
@@ -34,9 +35,7 @@ from ..utils.timing import Timer, span
 def resolve_device(device) -> torch.device:
     """The torch device of a pricer: "cuda" needs a card and never falls
     back to the CPU."""
-    device = torch.device(device)
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"device {device} is neither cpu nor cuda")
+    device = check_device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but torch.cuda.is_available() "
                            "is False; pass device='cpu' to price on "
@@ -73,7 +72,7 @@ class NMCH(abc.ABC):
         self.streams: PathStreams | None = None
         self.result: SimResult | None = None
         self.init_time_ms = float("nan")
-        # the kernel launch a subclass binds on a card (ops/fe_cuda.py::
+        # the kernel launch a subclass binds on a card (ops/launch.py::
         # BoundLaunch), or None where its engine, rng or device takes none
         self._launch = None
         self._pv = torch.empty(8, dtype=torch.float32)
@@ -112,31 +111,29 @@ class NMCH(abc.ABC):
         """One Monte Carlo pricing run; each call draws a fresh epoch.
 
         On a card, a pricer whose engine and rng take a bound launch
-        (``ops/fe_cuda.py::BoundLaunch``: ``NMCH_FE`` with engine "cuda"
+        (``ops/launch.py::BoundLaunch``: ``NMCH_FE`` with engine "cuda"
         and a counter rng, ``NMCH_EM`` with engine "cuda") binds it in its
         first call and again where the static arguments changed (a new
         seed, cfg, device or variant; a setter of the Heston parameters
         does not).  The launch keeps the validated static arguments, the
         library's entry point, the device's index, the ``partials`` and
-        ``out`` buffers and a pinned host buffer.  Each call then does
-        its own work only: the epoch, the parameters as the kernel's
-        arguments (EM's loop constants), the current stream, one foreign
-        call, one copy of ``out`` into the pinned buffer, one wait on the
-        stream, the floats.  Any other return of ``_moments`` is brought
-        to the host by ``host_values``.  ``exec_time_ms`` spans the call
-        from a device synchronisation to the wait for its result.
+        ``out`` buffers, and a pinned host buffer from its first fetch.
+        Each call then does its own work only: the epoch, the parameters
+        as the kernel's arguments (EM's loop constants), the current
+        stream, one foreign call, one copy of ``out`` into the pinned
+        buffer, one wait on the stream, the floats.  Any other return of
+        ``_moments`` is brought to the host by ``host_values``.
+        ``exec_time_ms`` spans the call from a device synchronisation to
+        the wait for its result.
 
         Spans (``utils/timing.py::span``): ``compute`` the whole call,
         ``prepare`` the host's work until the kernel is queued.  The
-        ``compute`` record carries the counts of ``_moments`` and, for a
-        pricer that takes a bound launch, ``launch.bound``: 1 where the
-        call bound it anew, 0 where it reused it."""
+        ``compute`` record carries the counts of ``_moments``."""
         with span("compute") as record:
             if self.streams is None:
                 raise RuntimeError("call init(seed) before compute()")
             epoch = self.streams.next_epoch()
             launch = self._launch
-            binds = None if launch is None else launch.binds
             with Timer(self.device) as t:
                 with span("prepare"):
                     moments = self._moments(epoch)
@@ -149,8 +146,6 @@ class NMCH(abc.ABC):
             if record is not None:
                 found = {name: int(v) for name, v in
                          zip(self.count_names, counts) if v == v}
-                if launch is not None:
-                    found["launch.bound"] = int(launch.binds != binds)
                 if found:
                     record.counts = found
             self.result = SimResult(

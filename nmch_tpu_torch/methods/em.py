@@ -24,7 +24,7 @@ import torch
 from ..ops.em import FAST_POISSON_CUT, em_moments_scan
 from ..ops.em_cuda import em_moments_cuda
 from ..ops.fe import path_index_grid
-from ..ops.fe_cuda import BoundLaunch
+from ..ops.launch import BoundLaunch
 from ..ops.sampling import STATEFUL_RNGS
 from ..params import HestonParams, SimConfig
 from ..rng.streams import check_stateful_epoch, check_stateful_paths

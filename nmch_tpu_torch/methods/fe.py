@@ -32,8 +32,9 @@ import torch
 
 from ..ops.fe import DEVICE_NOT_TPU, fe_moments_rot_scan, fe_moments_scan, \
     path_index_grid
-from ..ops.fe_cuda import RNGS, BoundLaunch, fe_moments_cuda, resolve_rot
+from ..ops.fe_cuda import fe_moments_cuda, resolve_rot
 from ..ops.fe_qmc import SCRAMBLES, fe_moments_qmc
+from ..ops.launch import RNGS, BoundLaunch
 from ..ops.sampling import STATEFUL_RNGS
 from ..params import HestonParams, SimConfig
 from ..rng.streams import check_stateful_epoch, check_stateful_paths

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from .chain import K, TAILS, chain_plain, check_chain, tail_name
-from .fe_cuda import call_kernel, count_launch
+from .launch import call_kernel, check_device, count_launch
 
 _DTYPE_CODE = {"f32": 0, "bf16": 1}
 
@@ -36,10 +36,8 @@ def chain_cuda(x: torch.Tensor, *, K: int = K, with_sqrt: bool,
     ``chain_cuda.launches`` and to ``variant_launches["chain_<dtype>_
     <alu|sqrt|rsqrt>"]``."""
     dtype = check_chain(x, K)
-    if x.device.type == "cpu":
+    if check_device(x.device).type == "cpu":
         return chain_plain(x, K=K, with_sqrt=with_sqrt, rsqrt=rsqrt)
-    if x.device.type != "cuda":
-        raise ValueError(f"device {x.device} is neither cpu nor cuda")
     cap = torch.cuda.get_device_capability(x.device)
     if cap < (9, 0):
         raise CapabilityError(f"compute capability {cap[0]}.{cap[1]}: the "

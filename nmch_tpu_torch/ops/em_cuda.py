@@ -26,12 +26,8 @@ from ..utils.timing import span
 from .em import em_conditional_payoff, em_consts, em_payoffs, \
     path_law_from_consts
 from .fe import LANES, moments_f64, path_index_grid
-from .fe_cuda import COUNTER_RNGS, BoundLaunch, call_kernel, check_args, \
-    check_params, check_rng, check_u32, count_launch, device_key
-
-# K2's generators; their index is the kernel's `rng` argument
-# (COUNTER_RNGS leads fe_cuda.RNGS)
-RNGS = COUNTER_RNGS
+from .launch import COUNTER_RNGS, BoundLaunch, check_args, check_params, \
+    check_rng, check_u32, count_launch, device_key
 
 
 def variant_name(rng: str, conditional: bool) -> str:
@@ -93,22 +89,22 @@ def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
     Each launch adds one to ``em_moments_cuda.launches`` and to
     ``em_moments_cuda.variant_launches[variant_name(rng, conditional)]``.
 
-    launch: a pricer's ``fe_cuda.BoundLaunch``, used as
+    launch: a pricer's ``BoundLaunch`` (``ops/launch.py``), used as
     ``fe_moments_cuda`` uses it (static arguments: all but params and the
-    epoch), where per_path is False.  Each call still computes its loop
+    epoch; per_path among them).  Each call still computes its loop
     constants from params.  The return is then the launch's ``out``, the
     vector (4,) that counts=True returns, which the next launch
-    overwrites.
+    overwrites; with per_path, the launch's ``after`` holds the payoffs
+    and the final counters as the kernel writes them (int32).
     """
-    bound = launch is not None and not per_path
-    if bound:
+    if launch is not None:
         key = (tuple(seed_words), base_path, N, n_paths, device_key(device),
-               rng, conditional, poisson_cut)
+               rng, conditional, poisson_cut, per_path)
         if key == launch.key:
-            return _em_bound(launch, params, epoch, N, poisson_cut)
-    device, N, n_paths, k0, k1, epoch, base_path = check_args(
-        params, seed_words, epoch, base_path, N, n_paths, device)
-    check_rng(rng, "EM")
+            return _em_bound(em_moments_cuda, launch, params, epoch, N,
+                             poisson_cut)
+    device, N, n_paths, k0, k1, epoch, base_path = _check(
+        params, seed_words, epoch, base_path, N, n_paths, device, rng)
     if device.type == "cpu":
         payoff, ctr = em_payoffs(params, N, path_index_grid(n_paths,
                                                             base_path),
@@ -116,32 +112,25 @@ def em_moments_cuda(params, seed_words, epoch, base_path, *, N: int,
                                  conditional=conditional,
                                  poisson_cut=poisson_cut)
         out = torch.stack(moments_f64(payoff))
-    elif bound:
+    else:
+        one_shot = launch is None
+        if one_shot:
+            launch, key = BoundLaunch(), None
+        after = (None, None)
+        if per_path:
+            after = tuple(torch.empty(n_paths // LANES, LANES, dtype=dtype,
+                                      device=device)
+                          for dtype in (torch.float32, torch.int32))
         launch.bind(key, "nmch_em_moments", variant_name(rng, conditional),
                     device, (k0, k1), (base_path, N, n_paths,
-                                       RNGS.index(rng),
+                                       COUNTER_RNGS.index(rng),
                                        int(bool(conditional))),
-                    4 * (n_paths // LANES), 4, after=(None, None))
-        return _em_bound(launch, params, epoch, N, poisson_cut)
-    else:
-        consts = _consts(params, N, poisson_cut)
-        partials = torch.empty(4 * (n_paths // LANES), dtype=torch.float64,
-                               device=device)
-        out = torch.empty(4, dtype=torch.float64, device=device)
-        payoff = ctr = None
-        if per_path:
-            payoff = torch.empty(n_paths // LANES, LANES,
-                                 dtype=torch.float32, device=device)
-            ctr = torch.empty(n_paths // LANES, LANES, dtype=torch.int32,
-                              device=device)
-        name = variant_name(rng, conditional)
-        call_kernel("nmch_em_moments", name, device, consts, k0, k1, epoch,
-                    base_path, N, n_paths, RNGS.index(rng),
-                    int(bool(conditional)), partials.data_ptr(),
-                    out.data_ptr(),
-                    None if payoff is None else payoff.data_ptr(),
-                    None if ctr is None else ctr.data_ptr())
-        count_launch(em_moments_cuda, name)
+                    4 * (n_paths // LANES), 4, after)
+        out = _em_bound(em_moments_cuda, launch, params, epoch, N,
+                        poisson_cut)
+        if not one_shot:
+            return out
+        payoff, ctr = after
         if per_path:
             ctr = ctr.to(torch.int64) & 0xFFFFFFFF
     moments = out if counts else (out[0], out[1])
@@ -154,6 +143,15 @@ em_moments_cuda.launches = 0
 em_moments_cuda.variant_launches = {}
 
 
+def _check(params, seed_words, epoch, base_path, N, n_paths, device, rng):
+    """The checks of ``em_moments_cuda`` and ``em_law_cuda``; returns
+    ``check_args``'s (device, N, n_paths, k0, k1, epoch, base_path)."""
+    args = check_args(params, seed_words, epoch, base_path, N, n_paths,
+                      device)
+    check_rng(rng, "EM")
+    return args
+
+
 def _consts(params, N, poisson_cut):
     """K2's loop constants of ``params`` as its float argument array (span
     ``prepare.consts``)."""
@@ -161,12 +159,13 @@ def _consts(params, N, poisson_cut):
         return (ctypes.c_float * 13)(*em_consts(params, N, poisson_cut))
 
 
-def _em_bound(launch: BoundLaunch, params, epoch, N, poisson_cut):
-    """K2 through a bound launch: the call's loop constants and epoch."""
+def _em_bound(fn, launch: BoundLaunch, params, epoch, N, poisson_cut):
+    """K2 through a bound launch, the tail of every call of ``fn`` on a
+    card: the call's loop constants and epoch."""
     check_params(params)
     launch.enqueue((_consts(params, N, poisson_cut),),
                    check_u32("epoch", epoch))
-    count_launch(em_moments_cuda, launch.name)
+    count_launch(fn, launch.name)
     return launch.out
 
 
@@ -181,28 +180,23 @@ def em_law_cuda(params, seed_words, epoch, base_path, *, N: int,
     the pathwise Greeks.  Arguments as ``em_moments_cuda``.  Each launch
     adds one to ``em_law_cuda.launches`` and to
     ``em_law_cuda.variant_launches[law_variant_name(rng)]``."""
-    device, N, n_paths, k0, k1, epoch, base_path = check_args(
-        params, seed_words, epoch, base_path, N, n_paths, device)
-    check_rng(rng, "EM")
-    c = em_consts(params, N, poisson_cut)
+    device, N, n_paths, k0, k1, epoch, base_path = _check(
+        params, seed_words, epoch, base_path, N, n_paths, device, rng)
     if device.type == "cpu":
+        c = em_consts(params, N, poisson_cut)
         path = path_index_grid(n_paths, base_path)
         m, sig_eff, v_T, vI, _ = path_law_from_consts(
             c, N, path, torch.zeros_like(path), epoch, k0, k1, rng)
         m1, m2 = moments_f64(em_conditional_payoff(m, sig_eff, c.S_0,
                                                    c.log_S0))
         return m1, m2, v_T, vI
-    consts = (ctypes.c_float * 13)(*c)
-    partials = torch.empty(2 * (n_paths // LANES), dtype=torch.float64,
-                           device=device)
-    out = torch.empty(2, dtype=torch.float64, device=device)
     law = torch.empty(2, n_paths // LANES, LANES, dtype=torch.float32,
                       device=device)
-    name = law_variant_name(rng)
-    call_kernel("nmch_em_law", name, device, consts, k0, k1, epoch,
-                base_path, N, n_paths, RNGS.index(rng), partials.data_ptr(),
-                out.data_ptr(), law.data_ptr())
-    count_launch(em_law_cuda, name)
+    launch = BoundLaunch()
+    launch.bind(None, "nmch_em_law", law_variant_name(rng), device, (k0, k1),
+                (base_path, N, n_paths, COUNTER_RNGS.index(rng)),
+                2 * (n_paths // LANES), 2, (law,))
+    out = _em_bound(em_law_cuda, launch, params, epoch, N, poisson_cut)
     return out[0], out[1], law[0], law[1]
 
 

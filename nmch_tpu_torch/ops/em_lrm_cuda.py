@@ -19,10 +19,10 @@ import ctypes
 import torch
 
 from .em import em_consts
-from .em_cuda import RNGS
 from .em_lrm import lrm_jacobian, lrm_plain
 from .fe import LANES
-from .fe_cuda import call_kernel, check_args, check_rng, count_launch
+from .launch import COUNTER_RNGS, call_kernel, check_args, check_rng, \
+    count_launch
 
 N_OUT = 7   # v_T, vI_rest, five scores
 PSI_TABLE = 1 << 14     # digamma(d + n) tabulated for n below this
@@ -69,7 +69,7 @@ def em_lrm_scores_cuda(params, seed_words, epoch, base_path, *, N: int,
     psi = torch.empty(PSI_TABLE, dtype=torch.float32, device=device)
     name = variant_name(rng)
     call_kernel("nmch_em_lrm", name, device, consts, jac, k0, k1, epoch,
-                base_path, N, n_paths, RNGS.index(rng),
+                base_path, N, n_paths, COUNTER_RNGS.index(rng),
                 SCHEDULES.index(schedule) - 1, psi.data_ptr(), PSI_TABLE,
                 out.data_ptr())
     count_launch(em_lrm_scores_cuda, name)

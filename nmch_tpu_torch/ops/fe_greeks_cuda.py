@@ -19,9 +19,9 @@ import ctypes
 import torch
 
 from .fe import LANES
-from .fe_cuda import RNGS, call_kernel, check_args, count_launch
 from .fe_greeks import N_PARAMS, consts_jacobian, fe_greeks_plain
 from .greeks import check_counter_rng
+from .launch import RNGS, call_kernel, check_args, count_launch, scratch
 
 
 def variant_name(rng: str) -> str:
@@ -56,9 +56,8 @@ def fe_greeks_cuda(params, seed_words, epoch, base_path, *, N: int,
     pv = (ctypes.c_float * N_PARAMS)(*params.tolist())
     jac = consts_jacobian(params, N).flatten().tolist()
     jac = (ctypes.c_float * len(jac))(*jac)
-    partials = torch.empty((1 + N_PARAMS) * (n_paths // LANES),
-                           dtype=torch.float64, device=device)
-    out = torch.empty(1 + N_PARAMS, dtype=torch.float64, device=device)
+    partials, out = scratch(device, (1 + N_PARAMS) * (n_paths // LANES),
+                            1 + N_PARAMS)
     table = None
     if per_path:
         table = torch.empty(1 + N_PARAMS, n_paths, dtype=torch.float32,

@@ -15,8 +15,9 @@ from __future__ import annotations
 import torch
 
 from .fe import LANES
-from .fe_cuda import call_kernel, count_launch
 from .fe_qmc import qmc_payoff_sums_plain
+from .launch import call_kernel, check_device, check_params, count_launch, \
+    scratch
 
 _MAX_N = 1 << 30
 _MAX_SHIFTS = 65535        # the kernel's gridDim.y
@@ -24,10 +25,7 @@ _MAX_SHIFTS = 65535        # the kernel's gridDim.y
 
 def _check(params, dW1, dW2, n_shifts):
     """Validate the wrapper's arguments; returns (device, N, M)."""
-    if not isinstance(params, torch.Tensor) or params.dtype != torch.float32 \
-            or params.shape != (8,) or params.device.type != "cpu":
-        raise ValueError("params must be a float32 tensor of shape (8,) on "
-                         "the CPU")
+    check_params(params)
     for name, dW in (("dW1", dW1), ("dW2", dW2)):
         if not isinstance(dW, torch.Tensor) or dW.dtype != torch.float32 \
                 or dW.dim() != 2:
@@ -38,9 +36,7 @@ def _check(params, dW1, dW2, n_shifts):
     if dW1.shape != dW2.shape or dW1.device != dW2.device:
         raise ValueError(f"dW1 {tuple(dW1.shape)} on {dW1.device} and dW2 "
                          f"{tuple(dW2.shape)} on {dW2.device} differ")
-    device = dW1.device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"device {device} is neither cpu nor cuda")
+    device = check_device(dW1.device)
     N, M = dW1.shape
     if not 1 <= N <= _MAX_N:
         raise ValueError(f"N={N} must be in [1, 2^30]")
@@ -63,9 +59,7 @@ def qmc_payoff_sums_cuda(params, dW1, dW2, n_shifts: int):
     if device.type == "cpu":
         return qmc_payoff_sums_plain(params, dW1, dW2, n_shifts)
     n_blocks = -(-(M // n_shifts) // LANES)
-    partials = torch.empty(2 * n_shifts * n_blocks, dtype=torch.float64,
-                           device=device)
-    out = torch.empty(n_shifts, 2, dtype=torch.float64, device=device)
+    partials, out = scratch(device, 2 * n_shifts * n_blocks, (n_shifts, 2))
     call_kernel("nmch_qmc_payoff_sums", "qmc_sim", device, *params.tolist(),
                 dW1.data_ptr(), dW2.data_ptr(), N, M, n_shifts,
                 partials.data_ptr(), out.data_ptr())

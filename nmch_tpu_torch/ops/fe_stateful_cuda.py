@@ -22,10 +22,11 @@ import numpy as np
 import torch
 
 from .fe import LANES
-from .fe_cuda import call_kernel, check_sizes, check_u32, count_launch
 from .fe_stateful import N_STATE, advance_state, check_family, \
     check_state, fe_moments_stateful_plain, fe_stateful_state, \
     host_jump_table, init_lane_tables
+from .launch import call_kernel, check_device, check_params, check_sizes, \
+    check_u32, count_launch, scratch
 
 FAMILIES = ("xorwow", "mrg32k3a")  # the kernels' `rng` argument is the index
 MAX_PATHS = 1 << 31     # the stream layout's path bits (rng/xorwow.py)
@@ -111,18 +112,13 @@ def fe_stateful_moments_cuda(params, state, *, N: int, rng: str):
     check_family(rng)
     n_paths = _check_paths(check_state(state))
     device, N, _ = check_sizes(N, n_paths, state.device)
-    if not isinstance(params, torch.Tensor) or params.dtype != torch.float32 \
-            or params.shape != (8,) or params.device.type != "cpu":
-        raise ValueError("params must be a float32 tensor of shape (8,) on "
-                         "the CPU")
+    check_params(params)
     if device.type == "cpu":
         return fe_moments_stateful_plain(params, state, N, rng)
 
     state = state.contiguous()
     state_out = torch.empty_like(state)
-    partials = torch.empty(2 * (n_paths // LANES), dtype=torch.float64,
-                           device=device)
-    out = torch.empty(2, dtype=torch.float64, device=device)
+    partials, out = scratch(device, 2 * (n_paths // LANES), 2)
     name = f"fe_{rng}"
     call_kernel("nmch_fe_stateful_moments", name, device, *params.tolist(),
                 N, n_paths, FAMILIES.index(rng), state.data_ptr(),
@@ -143,11 +139,9 @@ def fe_stateful_state_cuda(rng: str, seed: int, n_paths: int, epoch: int,
     check_family(rng)
     n_paths = _check_paths(n_paths)
     epoch = check_u32("epoch", epoch)
-    device = torch.device(device)
+    device = check_device(device)
     if device.type == "cpu":
         return fe_stateful_state(rng, seed, n_paths, epoch, device)
-    if device.type != "cuda":
-        raise ValueError(f"device {device} is neither cpu nor cuda")
     tables, lane_tables = _init_tables(rng, str(device))
     out = torch.empty(N_STATE, n_paths, dtype=torch.int64, device=device)
     name = f"jump_init_{rng}"

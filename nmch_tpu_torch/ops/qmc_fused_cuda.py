@@ -26,9 +26,9 @@ import weakref
 import torch
 
 from .fe import LANES
-from .fe_cuda import call_kernel, count_launch
 from .fe_qmc import PRECISIONS, check_fused, fused_operands, \
     qmc_payoff_sums_fused_plain
+from .launch import call_kernel, check_device, count_launch, scratch
 
 # the kernels-line names of the three precisions
 KERNEL_NAMES = {"HIGHEST": "qmc_fused", "HIGH": "qmc_fused_hilo",
@@ -175,19 +175,15 @@ def qmc_payoff_sums_fused_cuda(params, z1, z2, A_scaled, n_shifts: int, *,
     ``qmc_payoff_sums_fused_cuda.launches`` and to
     ``variant_launches[KERNEL_NAMES[precision]]``."""
     N, M = check_fused(params, z1, z2, A_scaled, n_shifts, precision)
-    device = z1.device
+    device = check_device(z1.device)
     if device.type == "cpu":
         return qmc_payoff_sums_fused_plain(params, z1, z2, A_scaled,
                                            n_shifts, precision=precision)
-    if device.type != "cuda":
-        raise ValueError(f"device {device} is neither cpu nor cuda")
     plan = cached_plan(A_scaled)
     ops = [op.contiguous() for op in fused_operands(A_scaled, precision)]
     a_lo = ops[1] if len(ops) > 1 else ops[0]
     n_blocks = M // n_shifts // LANES
-    partials = torch.empty(2 * n_shifts * n_blocks, dtype=torch.float64,
-                           device=device)
-    out = torch.empty(n_shifts, 2, dtype=torch.float64, device=device)
+    partials, out = scratch(device, 2 * n_shifts * n_blocks, (n_shifts, 2))
     name = KERNEL_NAMES[precision]
     call_kernel("nmch_qmc_fused_sums", name, device, *params.tolist(),
                 z1.data_ptr(), z2.data_ptr(), ops[0].data_ptr(),

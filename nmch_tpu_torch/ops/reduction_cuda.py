@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .fe_cuda import call_kernel, count_launch
+from .launch import call_kernel, check_device, count_launch
 from .reduction import check_rows, red_sum_plain
 
 
@@ -25,10 +25,8 @@ def red_sum_cuda(x: torch.Tensor) -> torch.Tensor:
     Each launch adds one to ``red_sum_cuda.launches`` and to
     ``variant_launches["red_sum"]``."""
     n_tiles = check_rows(x)
-    if x.device.type == "cpu":
+    if check_device(x.device).type == "cpu":
         return red_sum_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"device {x.device} is neither cpu nor cuda")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned (the kernel loads "
                          "float4s)")

@@ -18,8 +18,8 @@ from ..utils.timing import span
 from .em import em_consts_table
 from .em_cuda import em_round_schedule, variant_name
 from .fe import LANES
-from .fe_cuda import COUNTER_RNGS, RNGS, call_kernel, check_rng, \
-    check_sizes, check_u32, count_launch
+from .launch import COUNTER_RNGS, RNGS, call_kernel, check_rng, \
+    check_sizes, check_u32, count_launch, scratch
 from .sweep import em_sweep_plain, fe_sweep_plain
 
 MAX_POINTS = 65535      # the kernels' gridDim.y
@@ -40,14 +40,6 @@ def _check(params_matrix, seed_words, epoch0, N, n_paths, device, rng,
     check_rng(rng, kernel, rngs)
     k0, k1 = (check_u32("seed word", w) for w in seed_words)
     return device, N, n_paths, k0, k1, check_u32("epoch0", epoch0)
-
-
-def _scratch(device, n_points: int, n_paths: int):
-    """The kernels' per-block partials and (P, 2) moments."""
-    partials = torch.empty(2 * n_points * (n_paths // LANES),
-                           dtype=torch.float64, device=device)
-    return partials, torch.empty(n_points, 2, dtype=torch.float64,
-                                 device=device)
 
 
 def fe_sweep_cuda(params_matrix, seed_words, epoch0, *, N: int,
@@ -72,7 +64,7 @@ def fe_sweep_cuda(params_matrix, seed_words, epoch0, *, N: int,
     name = f"fe_sweep_{rng}"
     with span("prepare.copy_in"):
         params = params_matrix.contiguous().to(device)
-    partials, out = _scratch(device, P, n_paths)
+    partials, out = scratch(device, 2 * P * (n_paths // LANES), (P, 2))
     call_kernel("nmch_fe_sweep_moments", name, device, params.data_ptr(), P,
                 k0, k1, epoch0, N, n_paths, RNGS.index(rng),
                 partials.data_ptr(), out.data_ptr())
@@ -148,7 +140,7 @@ def em_sweep_cuda(params_matrix, seed_words, epoch0, *, N: int,
     with span("prepare.copy_in"):
         dispatch = dispatch.to(device, torch.int32)
         consts = table.to(device)
-    partials, out = _scratch(device, P, n_paths)
+    partials, out = scratch(device, 2 * P * (n_paths // LANES), (P, 2))
     payoff = ctr = None
     if per_path:
         shape = (P, n_paths // LANES, LANES)

@@ -35,9 +35,8 @@ class SpanRecord:
     ``request``, a per-process number that a top-level span takes when it
     opens and its descendants share; and ``counts``, {name: int} of the
     work the span's code counted (``compute``: K2's ``k2.blocks``, and
-    ``k2.warp_iters`` where K2 ran its round schedule; ``launch.bound``, 1
-    where the call bound its pricer's launch anew and 0 where it reused it;
-    methods/base.py), empty for every other span."""
+    ``k2.warp_iters`` where K2 ran its round schedule; methods/base.py),
+    empty for every other span."""
 
     __slots__ = ("name", "start_ns", "end_ns", "parent", "request",
                  "counts")

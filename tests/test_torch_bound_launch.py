@@ -1,36 +1,38 @@
-"""A pricer's bound kernel launch (``ops/fe_cuda.py::BoundLaunch``): bound
+"""A pricer's bound kernel launch (``ops/launch.py::BoundLaunch``): bound
 in the first ``compute()`` on a card and reused while the static arguments
 stay (seed words, base_path, N, n_paths, device, variant), bound anew where
 they change, never on the CPU; each call then brings only its parameters
-and epoch, and waits once.
+and epoch, and waits once.  A wrapper called without a launch binds a
+fresh one, and the launch layer sits below every wrapper and pricer.
 
 The CPU cases run the bound path on a fake card: the library's two entry
 points compute the plain versions from the arguments they receive and
 write them through ``out``'s pointer, the buffers are CPU tensors, and the
-stream and device calls are stand-ins.  The card's cases (marker ``cuda``)
+stream, device and pinned-memory calls are stand-ins.  The card's cases (marker ``cuda``)
 hold the bound path bitwise to fresh wrapper calls, and import neither jax
 nor nmch_tpu:
 
     python -m pytest tests/test_torch_bound_launch.py -m cuda -q --noconftest
 """
 
+import ast
 import contextlib
 import ctypes
 import math
+import pathlib
 
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 import nmch_tpu_torch.methods.base as methods_base
 import nmch_tpu_torch.methods.em as methods_em
 import nmch_tpu_torch.methods.fe as methods_fe
 from nmch_tpu_torch import HestonParams, NMCH_EM, NMCH_FE, SimConfig
-from nmch_tpu_torch.ops import em_cuda, fe_cuda
+from nmch_tpu_torch.ops import em_cuda, fe_cuda, launch as launch_layer
 from nmch_tpu_torch.ops.em import EmConsts, moments_f64, payoffs_from_consts
 from nmch_tpu_torch.ops.fe import BOXES, fe_moments_kernel_plain, \
     path_index_grid
-from nmch_tpu_torch.utils.timing import device_ops, spans
+from nmch_tpu_torch.utils.timing import device_ops
 
 TINY = SimConfig(NTPB=128, NB=1, N=4)
 WIDER = SimConfig(NTPB=128, NB=2, N=4)
@@ -44,17 +46,21 @@ def _write(ptr: int, values: torch.Tensor) -> None:
 
 class FakeLib:
     """The library's two pricing entry points, as plain versions of their
-    arguments: ``calls`` keeps each call's epoch and n_paths."""
+    arguments: ``calls`` keeps each call's epoch and n_paths, ``args`` its
+    arguments but the partials' and out's pointers (EM's constants as a
+    list)."""
 
     def __init__(self):
         self.calls = []
+        self.args = []
 
     def nmch_fe_moments(self, *a):
         *pv, k0, k1, epoch, base, N, n_paths, rng, rot, box, fast = a[:-3]
         self.calls.append((epoch, n_paths))
+        self.args.append((*a[:-3], a[-1]))
         m = fe_moments_kernel_plain(
             torch.tensor(pv, dtype=torch.float32), (k0, k1), epoch, base,
-            N=N, n_paths=n_paths, rng=fe_cuda.RNGS[rng], rot=rot,
+            N=N, n_paths=n_paths, rng=launch_layer.RNGS[rng], rot=rot,
             box=BOXES[box], fast_sqrt=bool(fast))
         _write(a[-2], torch.stack(m))
         return 0
@@ -63,8 +69,11 @@ class FakeLib:
                         conditional, partials, out, payoff, ctr, stream):
         c = EmConsts(*consts)
         self.calls.append((epoch, n_paths))
+        self.args.append((list(consts), k0, k1, epoch, base, N, n_paths, rng,
+                          conditional, payoff, ctr, stream))
         pay, _ = payoffs_from_consts(c, N, path_index_grid(n_paths, base),
-                                     epoch, k0, k1, em_cuda.RNGS[rng],
+                                     epoch, k0, k1,
+                                     launch_layer.COUNTER_RNGS[rng],
                                      bool(conditional))
         # no counts: the plain version has no warps to count
         _write(out, torch.cat([torch.stack(moments_f64(pay)),
@@ -84,20 +93,28 @@ class FakeStream:
 
 @pytest.fixture
 def card(monkeypatch):
-    """A fake card: pricers on device "cuda" take the bound path."""
+    """A fake card: pricers on device "cuda" take the bound path; the
+    pinned buffers that ``BoundLaunch.fetch`` makes are kept in
+    ``pinned``."""
     lib, stream = FakeLib(), FakeStream()
-    syncs = []
+    syncs, pinned = [], []
+
+    def pinned_like(t):
+        pinned.append(torch.empty_like(t))
+        return pinned[-1]
+
     monkeypatch.setattr(methods_base, "resolve_device", torch.device)
-    monkeypatch.setattr(fe_cuda, "load_library", lambda: (lib, None))
-    monkeypatch.setattr(fe_cuda, "launch_buffers", lambda n_partials, n_out,
-                        index: tuple(torch.empty(n, dtype=torch.float64)
-                                     for n in (n_partials, n_out, n_out)))
+    monkeypatch.setattr(launch_layer, "load_library", lambda: (lib, None))
+    monkeypatch.setattr(launch_layer, "scratch", lambda device, n_partials,
+                        out_shape: tuple(torch.empty(n, dtype=torch.float64)
+                                         for n in (n_partials, out_shape)))
+    monkeypatch.setattr(launch_layer, "pinned_like", pinned_like)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda index: stream)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda index: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "synchronize", syncs.append)
-    lib.stream, lib.syncs = stream, syncs
+    lib.stream, lib.syncs, lib.pinned = stream, syncs, pinned
     return lib
 
 
@@ -178,26 +195,6 @@ def test_a_new_static_key_binds_anew(card, tmp_path, cls, change):
     assert card_price == cpu_price and launch.binds == 2
 
 
-def test_bound_count_on_the_compute_record(card):
-    """Under a profiler the compute record carries launch.bound, 1 where
-    the call bound the launch and 0 where it reused it; without one no
-    record is made."""
-    p = _pair(NMCH_FE)[0]
-    n0 = len(spans())
-    p.compute()
-    assert len(spans()) == n0
-    with profile(activities=[ProfilerActivity.CPU]):
-        p.compute()
-        p.init(5)
-        p.compute()
-        p.set_k(1.5)
-        p.compute()
-    got = [r.counts for r in spans()[n0:] if r.name == "compute"]
-    assert got == [{"launch.bound": 0}, {"launch.bound": 1},
-                   {"launch.bound": 0}]
-    assert all(type(c["launch.bound"]) is int for c in got)
-
-
 def test_each_call_waits_once(card):
     """A bound call synchronises the device once (the Timer's entry) and
     waits once on the launch's stream, after one copy of out."""
@@ -236,17 +233,15 @@ def test_a_wrapper_that_halves_the_paths_changes_the_result(
     (NMCH_EM, {}), (NMCH_EM, {"engine": "scan"})])
 def test_pricers_that_never_bind(card, cls, kw):
     """CPU pricers, and on a card the stateful, QMC and scan engines, take
-    no bound launch, and their compute records carry no launch.bound."""
+    no bound launch."""
     p = cls(TINY, HestonParams(), device="cpu", **kw)
     assert p._launch is None
     if kw:
         q = cls(TINY, HestonParams(), device="cuda", **kw)
         assert q._launch is None
     p.init(3)
-    n0 = len(spans())
-    with profile(activities=[ProfilerActivity.CPU]):
-        p.compute()
-    assert "launch.bound" not in spans()[n0].counts
+    p.compute()
+    assert p._launch is None
 
 
 def test_finalize_releases_the_buffers(card):
@@ -275,15 +270,83 @@ def test_call_kernel_guards_only_another_device(monkeypatch):
         guards.append(index)
         yield
 
-    monkeypatch.setattr(fe_cuda, "load_library", lambda: (Lib(), None))
+    monkeypatch.setattr(launch_layer, "load_library", lambda: (Lib(), None))
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device", guard)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda index: type(
         "Stream", (), {"cuda_stream": 10 + index}))
     for device in ("cuda", "cuda:0", torch.device("cuda", 1)):
-        fe_cuda.call_kernel("nmch_fake", "fake", device, 5)
+        launch_layer.call_kernel("nmch_fake", "fake", device, 5)
     assert guards == [1]
     assert calls == [(5, 10), (5, 10), (5, 11)]
+
+
+def _wrapper_call(p, device, counts):
+    """The wrapper call, with no launch, that prices what ``p`` prices at
+    epoch 0 (counts: EM's ``counts``)."""
+    kw = dict(N=p.cfg.N, n_paths=p.cfg.n_paths, device=device, rng=p.rng)
+    pv = p.params.as_tensor("cpu")
+    if isinstance(p, NMCH_FE):
+        return fe_cuda.fe_moments_cuda(pv, p.streams.key_words, 0, 0,
+                                       rot=p.rot, **kw)
+    return em_cuda.em_moments_cuda(
+        pv, p.streams.key_words, 0, 0, conditional=p.conditional,
+        poisson_cut=p.poisson_cut, counts=counts, **kw)
+
+
+@pytest.mark.parametrize("cls,counts", [
+    (NMCH_FE, False), (NMCH_EM, False), (NMCH_EM, True)])
+def test_a_call_without_a_launch_binds_a_fresh_one(card, cls, counts):
+    """A wrapper called with no launch on a card reaches the library once,
+    with the arguments a pricer's bound call passes for the same params
+    and epoch; it returns the moments as two 0-dim tensors (EM with
+    counts: the vector (4,)), bitwise the CPU plain version's, and makes
+    no pinned buffer."""
+    p = _pair(cls)[0]
+    p.compute()
+    pinned = len(card.pinned)
+    got = _wrapper_call(p, "cuda", counts)
+    want = _wrapper_call(p, "cpu", counts)
+    assert len(card.args) == 2 and card.args[1] == card.args[0]
+    assert len(card.pinned) == pinned == 1
+    if counts:
+        assert got.shape == (4,) and got.dtype == torch.float64
+        assert got[:2].tolist() == want.tolist()
+        assert math.isnan(got[2].item()) and math.isnan(got[3].item())
+    else:
+        assert len(got) == 2
+        assert all(t.shape == () and t.dtype == torch.float64 for t in got)
+        assert [t.item() for t in got] == [t.item() for t in want]
+
+
+def _relative_imports(path: pathlib.Path):
+    """(module, names) of each import in ``path``, a relative module
+    resolved to its dotted name within the package."""
+    pkg = ["nmch_tpu_torch", *path.parent.relative_to(
+        pathlib.Path(launch_layer.__file__).parents[1]).parts]
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from ((a.name, []) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = pkg[:len(pkg) - node.level + 1] if node.level else []
+            module = ".".join([*base, *(node.module or "").split(".")])
+            yield module.strip("."), [a.name for a in node.names]
+
+
+def test_the_launch_layer_sits_below_the_wrappers():
+    """``ops/launch.py`` imports no wrapper (``ops/*_cuda.py``) and no
+    pricer (``methods/``), and no wrapper takes a name from
+    ``ops/fe_cuda.py`` but ``fe_moments_cuda``."""
+    ops = pathlib.Path(launch_layer.__file__).parent
+    below = [m for m, _ in _relative_imports(ops / "launch.py")]
+    assert below and not [m for m in below if m.endswith("_cuda")
+                          or m.startswith("nmch_tpu_torch.methods")]
+    wrappers = sorted(ops.glob("*_cuda.py"))
+    assert wrappers
+    taken = {name for path in wrappers
+             for m, names in _relative_imports(path)
+             if m == "nmch_tpu_torch.ops.fe_cuda" for name in names}
+    assert taken <= {"fe_moments_cuda"}
 
 
 # --- on the card --------------------------------------------------------------

@@ -18,7 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from nmch_tpu_torch import HestonParams, NMCH_EM, NMCH_FE, SimConfig
 from nmch_tpu_torch import explore
-from nmch_tpu_torch.ops import fe_cuda
+from nmch_tpu_torch.ops import launch
 from nmch_tpu_torch.utils import timing
 from nmch_tpu_torch.utils.timing import span, spans, spans_dropped
 
@@ -103,7 +103,7 @@ def test_enqueue_span_inside_its_caller(monkeypatch):
             calls.append(args)
             return 0
 
-    monkeypatch.setattr(fe_cuda, "load_library", lambda: (Lib(), None))
+    monkeypatch.setattr(launch, "load_library", lambda: (Lib(), None))
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
@@ -112,8 +112,8 @@ def test_enqueue_span_inside_its_caller(monkeypatch):
     n0 = len(spans())
     with _cpu_profile():
         with span("prepare"):
-            fe_cuda.call_kernel("nmch_fake", "fake", "cuda", 1, 2)
-        fe_cuda.call_kernel("nmch_fake", "fake", "cuda", 3)
+            launch.call_kernel("nmch_fake", "fake", "cuda", 1, 2)
+        launch.call_kernel("nmch_fake", "fake", "cuda", 3)
     assert calls == [(1, 2, 7), (3, 7)]
     rec = spans()
     tree = _tree(rec, n0)
