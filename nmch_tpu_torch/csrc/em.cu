@@ -15,23 +15,42 @@
 // scan engine; it is instantiated apart from the four, which keep their
 // registers.
 //
-// What bounds it on an H100: instruction issue. A step costs a Poisson
-// draw (one round on the normal branch above the cut, a geometric number of
-// PTRS rounds below it, Knuth rounds below lam = 10) and one or more
-// Marsaglia-Tsang rounds; each round is a Philox (10 rounds, 4 integer
-// multiplies each) or Threefry (12 rounds of add/rotate/xor) block, a
-// Box-Muller normal with a logf, and the acceptance test's logf/log1pf.
-// A path's whole state (v, vI, counter, constants) stays in registers; the
-// kernel touches memory only to write the payoff (and, on request, the
-// per-path payoff and counter for checks). Where lanes of a warp leave the
-// normal branch, the step loops wait for each sampler's slowest lane, once
-// per Poisson regime present: em_path.cuh then runs the path on its round
-// schedule (the phase with more lanes draws, each lane in its own stage
-// and round), chosen per launch from the constants. What is left is the
-// round loop's own cost (votes, stage tests, state carried across
-// iterations: ~15% over the step loops at an equal schedule), the MT
-// squeeze's two-logf fallback, which some lane of a warp needs in most MT
-// rounds, and the lanes that wait for their phase.
+// What bounds it on an H100 depends on the launch's shape. At full load
+// (the CLI's 2^18 paths, 2,048 blocks, 15.5 an SM) instruction issue: a
+// step costs a Poisson draw (one round on the normal branch above the cut,
+// a geometric number of PTRS rounds below it, Knuth rounds below lam = 10)
+// and one or more Marsaglia-Tsang rounds; each round is a Philox (10
+// rounds, 4 integer multiplies each) or Threefry (12 rounds of
+// add/rotate/xor) block, a Box-Muller normal with a logf, and the
+// acceptance test's logf/log1pf. A path's whole state (v, vI, counter,
+// constants) stays in registers; the kernel touches memory only to write
+// the payoff (and, on request, the per-path payoff and counter for
+// checks). Where lanes of a warp leave the normal branch, the step loops
+// wait for each sampler's slowest lane, once per Poisson regime present:
+// em_path.cuh then runs the path on its round schedule (the phase with
+// more lanes draws, each lane in its own stage and round), chosen per
+// launch from the constants. What is left is the round loop's own cost
+// (votes, stage tests, state carried across iterations: ~15% over the step
+// loops at an equal schedule), the MT squeeze's two-logf fallback, which
+// some lane of a warp needs in most MT rounds, and the lanes that wait for
+// their phase.
+//
+// Under one wave (explore's loop mode: 5,120 paths, 40 blocks, one warp on
+// each scheduler of 40 SMs) no warp hides another's latency, and a launch
+// takes as long as one path's chain of dependent instructions, not its
+// issue: ~0.80 ms on the step loops and ~1.97 ms on the round schedule for
+// N = 1000 (explore's points, philox, H100 at 700 W). Each round's counter
+// block sits at the head of that chain, ~20 dependent integer operations
+// that the float math waits for; a build whose block was a short hash
+// instead ran 12.4% faster there (16% on the step loops, 8% on the round
+// schedule), which bounds what hiding the block can give. So em_paths
+// draws through em_path.cuh's lookahead counter (AheadCounter), which
+// starts each path's next block as it hands out the current one, beside
+// that round's float math: the same bits, 7.7% less time on explore's
+// launches (11.5% on the step loops, 3.0% on the round schedule, whose
+// draws sit behind its stage branches) and 1-6% less at the CLI's 2^18
+// paths, against the plain counter (uint32_t), which the law build, K4
+// (sweep.cu) and K2-LRM (em_lrm.cu) keep.
 //
 // Numerics: see em_path.cuh. Built with -fmad=false, a path's counter and
 // payoff equal the plain PyTorch version's (ops/em.py) on the card; the
@@ -57,6 +76,7 @@ struct WarpDraws {
 
 // kRounds: the round schedule, else the step loops (em_path.cuh); a kernel
 // holds one of them, so that the step loops keep their own register count.
+// Both draw through the lookahead counter (em_path.cuh's AheadCounter).
 // Each block's partials are 4 values: the payoffs' sum and sum of squares,
 // then its counts: the counter blocks its paths drew (their final counters,
 // which start at 0) and, on the round schedule, the block draws its warps
@@ -71,9 +91,9 @@ __global__ void __launch_bounds__(kPathThreads)
   uint32_t ctr;
   WarpDraws warp;
   const float payoff =
-      kRounds ? nmch::em_path_rounds<R, kConditional>(a, path, ctr,
-                                                       nmch::NoReport(), warp)
-              : nmch::em_path_steps<R, kConditional>(a, path, ctr);
+      kRounds ? nmch::em_path_rounds<R, kConditional, true>(
+                    a, path, ctr, nmch::NoReport(), warp)
+              : nmch::em_path_steps<R, kConditional, true>(a, path, ctr);
   if (payoff_out != nullptr) {
     payoff_out[idx] = payoff;
     ctr_out[idx] = ctr;

@@ -43,6 +43,26 @@
 // 0.77-0.95x their time where over ~7% of steps leave the normal branch
 // and 1.07-1.21x below that (K2 on each of explore's points).
 //
+// Both schedules draw through a counter of one of two types (Counter). The
+// plain counter is the path's uint32_t. Under one wave a launch runs at
+// the pace of one path's chain of dependent instructions, not of issue,
+// and each round's counter block (~20 dependent integer operations) heads
+// that chain: a short hash in its place took K2 12.4% faster at explore's
+// 40 blocks on an H100. The lookahead counter (AheadCounter, K2's
+// em_paths in em.cu) takes the block off the chain: it holds the next
+// block and computes the one after it while the float math of the block
+// just handed out runs. That took the same launches 7.7% faster (11.5% on the
+// step loops; 3.0% on the round schedule, where a lane's draw is followed
+// by its stage's branches, which leave little float math in the same
+// basic block to issue beside the block). Starting the refill later in the
+// round's step phase, after its PTRS set-up, gained nothing more. A
+// second block of lookahead was not tried: a warp issues in order, so a
+// block started two draws ahead would issue its chain beside the same
+// float math as one started one draw ahead. At full load, where issue
+// bounds K2, it cost nothing either (1-6% less time at 2^18 paths, with
+// 39-44 registers against the plain counter's 31-39). The law build, K4
+// and K2-LRM keep the plain counter.
+//
 // Numerics: every float operation of a lane is the plain version's, in its
 // order (built with -fmad=false, no --use_fast_math; IEEE sqrtf and
 // division). The transcendentals are libdevice's logf, expf, log1pf and
@@ -143,6 +163,64 @@ __device__ __forceinline__ void draw4(uint32_t& ctr, const EmArgs& a,
   ++ctr;
 }
 
+// A path's counter as the samplers draw from it, of one of two types. The
+// plain counter is the uint32_t ctr itself: draw() is draw4. The lookahead
+// counter (K2's em_paths) holds, beside the count, the block at it in
+// registers: draw() hands that block out and at once starts the next.
+// A path draws its blocks at 0, 1, 2, ... whichever sampler takes them, so
+// that block's integer chain (Philox's 10 rounds of multiply and xor, or
+// Threefry's 12 of add, rotate and xor) depends on no float result, and is
+// issued beside the float math of the block just handed out instead of
+// ahead of it on one round's chain. The same blocks in the same order and
+// every float operation as with the plain counter; it computes one block
+// past the last one drawn, which blocks_drawn() leaves out.
+template <int R>
+struct AheadCounter {
+  uint32_t n;        // the blocks handed out
+  uint32_t held[4];  // the block at counter n
+};
+
+template <int R, bool kAhead>
+using Counter = std::conditional_t<kAhead, AheadCounter<R>, uint32_t>;
+
+template <int R>
+__device__ __forceinline__ void start(uint32_t& ctr, const EmArgs&,
+                                      uint32_t) {
+  ctr = 0u;
+}
+
+template <int R>
+__device__ __forceinline__ void start(AheadCounter<R>& c, const EmArgs& a,
+                                      uint32_t path) {
+  c.n = 0u;
+  uint32_t at = 0u;
+  draw4<R>(at, a, path, c.held);
+}
+
+// The block at the path's counter into w; advances the counter.
+template <int R>
+__device__ __forceinline__ void draw(uint32_t& ctr, const EmArgs& a,
+                                     uint32_t path, uint32_t w[4]) {
+  draw4<R>(ctr, a, path, w);
+}
+
+template <int R>
+__device__ __forceinline__ void draw(AheadCounter<R>& c, const EmArgs& a,
+                                     uint32_t path, uint32_t w[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = c.held[j];
+  ++c.n;
+  uint32_t at = c.n;
+  draw4<R>(at, a, path, c.held);
+}
+
+__device__ __forceinline__ uint32_t blocks_drawn(uint32_t ctr) { return ctr; }
+
+template <int R>
+__device__ __forceinline__ uint32_t blocks_drawn(const AheadCounter<R>& c) {
+  return c.n;
+}
+
 __device__ __forceinline__ float cos_2pi(float u) {
   float c, s;
   sincos_2pi(u, c, s);
@@ -214,9 +292,10 @@ __device__ __forceinline__ float terminal_payoff(const EmArgs& a, float m,
 
 // ---- The step schedule ----------------------------------------------------
 
-// N_p ~ Poisson(lam) (ops/sampling.py::poisson_from_stream); advances ctr.
-template <int R>
-__device__ float poisson(float lam, uint32_t& ctr, const EmArgs& a,
+// N_p ~ Poisson(lam) (ops/sampling.py::poisson_from_stream), drawn through
+// the path's counter (Counter).
+template <int R, class Ctr>
+__device__ float poisson(float lam, Ctr& ctr, const EmArgs& a,
                          uint32_t path) {
   uint32_t w[4];
   if (lam < kPoissonSmall) {
@@ -224,7 +303,7 @@ __device__ float poisson(float lam, uint32_t& ctr, const EmArgs& a,
     const float target = nm_exp(-lam);
     float t = 1.0f, cnt = 0.0f;
     for (int rnd = 0; rnd < kPoissonMaxRounds; ++rnd) {
-      draw4<R>(ctr, a, path, w);
+      draw<R>(ctr, a, path, w);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (t >= target) {
@@ -239,7 +318,7 @@ __device__ float poisson(float lam, uint32_t& ctr, const EmArgs& a,
   const float sqrt_lam = sqrtf(lam);
   if (lam >= a.poisson_cut) {
     // continuity-corrected normal approximation: one round, always done
-    draw4<R>(ctr, a, path, w);
+    draw<R>(ctr, a, path, w);
     const float g = normal_from_log(nm_log(uniform_open01(w[0])), w[1]);
     return fmaxf(floorf(lam + sqrt_lam * g + 0.5f), 0.0f);
   }
@@ -251,7 +330,7 @@ __device__ float poisson(float lam, uint32_t& ctr, const EmArgs& a,
   const float vr = kPtrsVr0 - kPtrsVr1 / (b - 2.0f);
   const float loglam = nm_log(lam);
   for (int rnd = 0; rnd < kPoissonMaxRounds; ++rnd) {
-    draw4<R>(ctr, a, path, w);
+    draw<R>(ctr, a, path, w);
     const float U = uniform_halfopen01(w[0]) - 0.5f;
     const float V = uniform_halfopen01(w[1]);
     const float us = 0.5f - fabsf(U);
@@ -269,9 +348,9 @@ __device__ float poisson(float lam, uint32_t& ctr, const EmArgs& a,
 }
 
 // Gamma(alpha0, 1) by Marsaglia-Tsang (ops/sampling.py::
-// gamma_ms_from_stream); advances ctr.
-template <int R>
-__device__ float gamma_ms(float alpha0, uint32_t& ctr, const EmArgs& a,
+// gamma_ms_from_stream), drawn through the path's counter (Counter).
+template <int R, class Ctr>
+__device__ float gamma_ms(float alpha0, Ctr& ctr, const EmArgs& a,
                           uint32_t path) {
   const bool need_boost = alpha0 < 1.0f;
   const float alpha = alpha0 + (need_boost ? 1.0f : 0.0f);
@@ -280,7 +359,7 @@ __device__ float gamma_ms(float alpha0, uint32_t& ctr, const EmArgs& a,
   float C = 1.0f;
   uint32_t w[4];
   for (int rnd = 0; rnd < kGammaMaxRounds; ++rnd) {
-    draw4<R>(ctr, a, path, w);
+    draw<R>(ctr, a, path, w);
     const float x = normal_from_log(nm_log(uniform_open01(w[0])), w[1]);
     const float v1 = 1.0f + cmul * x;
     const float v = v1 * v1 * v1;
@@ -329,12 +408,13 @@ struct LawReport {
   }
 };
 
-template <int R, bool kConditional, class Report = NoReport>
-__device__ float em_path_steps(const EmArgs& a, uint32_t path, uint32_t& ctr,
-                               Report&& rep = Report()) {
+// The step schedule on a counter of either type (Counter).
+template <int R, bool kConditional, class Ctr, class Report>
+__device__ __forceinline__ float path_steps(const EmArgs& a, uint32_t path,
+                                            Ctr& ctr, Report& rep) {
   float Vt = a.v_0;
   float vI = 0.0f;
-  ctr = 0u;
+  start<R>(ctr, a, path);
   for (int i = 0; i < a.N; ++i) {
     const float lam = a.lam_const * Vt;
     const float n_p = poisson<R>(lam, ctr, a, path);
@@ -351,9 +431,25 @@ __device__ float em_path_steps(const EmArgs& a, uint32_t path, uint32_t& ctr,
   if (kConditional) return conditional_payoff(a, m, sig_eff);
   // terminal draw: one more block
   uint32_t w[4];
-  draw4<R>(ctr, a, path, w);
+  draw<R>(ctr, a, path, w);
   return terminal_payoff(a, m, sig_eff,
                          normal_from_log(nm_log(uniform_open01(w[0])), w[1]));
+}
+
+// kAhead: the lookahead counter (AheadCounter), else the plain one; ctr
+// receives the blocks drawn.
+template <int R, bool kConditional, bool kAhead = false,
+          class Report = NoReport>
+__device__ float em_path_steps(const EmArgs& a, uint32_t path, uint32_t& ctr,
+                               Report&& rep = Report()) {
+  if constexpr (kAhead) {
+    AheadCounter<R> c;
+    const float payoff = path_steps<R, kConditional>(a, path, c, rep);
+    ctr = blocks_drawn(c);
+    return payoff;
+  } else {
+    return path_steps<R, kConditional>(a, path, ctr, rep);
+  }
 }
 
 // ---- The round schedule ---------------------------------------------------
@@ -377,10 +473,12 @@ enum EmStage : int {
 //   Gamma     q0 alpha0, q1 d, q2 1/sqrt(9 d), q3 the boost factor C,
 //             q4 the step's Poisson index (for a per-step report)
 //   terminal  q0 m, q1 sig_eff
+// Ctr: the path's counter (Counter).
+template <class Ctr>
 struct EmLane {
   float Vt, vI;  // v_t and the running sum of (v_t + v_{t+dt})
   float q0, q1, q2, q3, q4, q5;
-  uint32_t ctr;  // the next block's counter
+  Ctr ctr;       // the next block's counter
   int i;         // the step
   int stage, rnd;
 };
@@ -388,8 +486,8 @@ struct EmLane {
 // Enter step s.i: lam, its Poisson regime and the regime's constants, as
 // poisson() sets them up; after the last step, the terminal stage, or with
 // kConditional the payoff.
-template <bool kConditional>
-__device__ __forceinline__ void begin_step(EmLane& s, const EmArgs& a,
+template <bool kConditional, class Lane>
+__device__ __forceinline__ void begin_step(Lane& s, const EmArgs& a,
                                            float& payoff) {
   s.rnd = 0;
   if (s.i < a.N) {
@@ -442,20 +540,22 @@ struct NoCount {
   __device__ void iteration() {}
 };
 
-// Report: as em_path_steps; a lane reports its steps in order, each when
-// its Gamma phase settles the draw (accepted, or the kGammaMaxRounds
-// fallback).
-template <int R, bool kConditional, class Report = NoReport,
-          class Count = NoCount>
+// kAhead and Report: as em_path_steps; a lane reports its steps in order,
+// each when its Gamma phase settles the draw (accepted, or the
+// kGammaMaxRounds fallback). With the lookahead counter a lane of the
+// chosen phase takes its held block and starts the next before the
+// stage's float math.
+template <int R, bool kConditional, bool kAhead = false,
+          class Report = NoReport, class Count = NoCount>
 __device__ float em_path_rounds(const EmArgs& a, uint32_t path, uint32_t& ctr,
                                 Report&& rep = Report(),
                                 Count&& tally = Count()) {
   constexpr bool kPerStep = std::remove_reference_t<Report>::kPerStep;
   constexpr unsigned kWarpAll = 0xFFFFFFFFu;
-  EmLane s;
+  EmLane<Counter<R, kAhead>> s;
   s.Vt = a.v_0;
   s.vI = 0.0f;
-  s.ctr = 0u;
+  start<R>(s.ctr, a, path);
   s.i = 0;
   float payoff = 0.0f;
   begin_step<kConditional>(s, a, payoff);
@@ -471,7 +571,7 @@ __device__ float em_path_rounds(const EmArgs& a, uint32_t path, uint32_t& ctr,
     if (__popc(in_gamma) > __popc(in_step)) {
       // the Gamma phase: an MT round
       if (!gamma) continue;
-      draw4<R>(s.ctr, a, path, w);
+      draw<R>(s.ctr, a, path, w);
       const float x = normal_from_log(nm_log(uniform_open01(w[0])), w[1]);
       const float v1 = 1.0f + s.q2 * x;
       const float v = v1 * v1 * v1;
@@ -511,7 +611,7 @@ __device__ float em_path_rounds(const EmArgs& a, uint32_t path, uint32_t& ctr,
     // the step phase: a Poisson round of the lane's regime, or the
     // terminal draw
     if (!active || gamma) continue;
-    draw4<R>(s.ctr, a, path, w);
+    draw<R>(s.ctr, a, path, w);
     // PTRS takes w0, w1 as half-open uniforms; its acceptance logf and the
     // Box-Muller radius's logf are one call
     float larg = uniform_open01(w[0]);
@@ -580,7 +680,7 @@ __device__ float em_path_rounds(const EmArgs& a, uint32_t path, uint32_t& ctr,
     s.rnd = 0;
   }
   rep.end(a, s.Vt, s.vI);
-  ctr = s.ctr;
+  ctr = blocks_drawn(s.ctr);
   return payoff;
 }
 
