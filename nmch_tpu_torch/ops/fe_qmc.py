@@ -66,6 +66,7 @@ from ..rng.sobol import (
     lms_scramble_directions, owen_scramble, owen_seeds, pm_sign_from_words,
     sobol_dims_u32, sobol_dims_u32_hilo, u01_from_words,
 )
+from ..utils.timing import span
 from .fe import fe_consts, fe_step
 
 # replicates of the randomized-QMC CI (the method layer's default)
@@ -201,38 +202,42 @@ def qmc_normals_mxu(D: int, n: int, epoch, k0, k1, v_np=None,
     base..base+n-1 of each replicate, replicate-major along the point
     axis (replicate r's randomization key is epoch * n_shifts + r): what
     ``qmc_increments_mxu`` multiplies by the bridge matrix (D = N) and
-    ``qmc_increments_dyadic`` refines (D = Npad)."""
+    ``qmc_increments_dyadic`` refines (D = Npad).  The span
+    ``prepare.points`` covers the directions, the words, the scrambles and
+    the normals."""
     if scramble not in SCRAMBLES:
         raise ValueError(f"unknown scramble {scramble!r}")
     if ndtri_mode not in ("fast", "precise"):
         raise ValueError(f"unknown ndtri_mode {ndtri_mode!r}")
-    V = as_words(direction_numbers(2 * D) if v_np is None else v_np, device)
-    if scramble == "lms-shift":
-        # one linear scramble shared by the replicates, each then
-        # digitally shifted (the shifts alone unbias each replicate)
-        V = lms_scramble_directions(V, epoch, k0, k1)
-    reps = ((int(epoch) * n_shifts)
-            + torch.arange(n_shifts, device=device)) & MASK32
-    dim_idx = torch.arange(2 * D, device=device)[:, None]
-    if scramble == "owen":
-        keys = owen_seeds(dim_idx, reps[None, :], k0, k1)           # (2D, R)
-    else:
-        shifts = digital_shifts(dim_idx, reps[None, :], k0, k1)     # (2D, R)
-    zs = []
-    for f in (0, 1):
-        dims = torch.arange(D, device=device) * 2 + f
-        x = sobol_dims_u32_hilo(n, V[dims], base=base)               # (D, n)
+    with span("prepare.points"):
+        V = as_words(direction_numbers(2 * D) if v_np is None else v_np,
+                     device)
+        if scramble == "lms-shift":
+            # one linear scramble shared by the replicates, each then
+            # digitally shifted (the shifts alone unbias each replicate)
+            V = lms_scramble_directions(V, epoch, k0, k1)
+        reps = ((int(epoch) * n_shifts)
+                + torch.arange(n_shifts, device=device)) & MASK32
+        dim_idx = torch.arange(2 * D, device=device)[:, None]
         if scramble == "owen":
-            xs = owen_scramble(x[:, None, :], keys[dims][:, :, None])
+            keys = owen_seeds(dim_idx, reps[None, :], k0, k1)       # (2D, R)
         else:
-            xs = x[:, None, :] ^ shifts[dims][:, :, None]            # (D,R,n)
-        del x
-        pm, neg = pm_sign_from_words(xs.reshape(D, n_shifts * n))
-        del xs
-        g = ndtri_fast_pm(pm) if ndtri_mode == "fast" \
-            else -torch.special.ndtri(pm)
-        zs.append(torch.where(neg, -g, g))
-    return zs[0], zs[1]
+            shifts = digital_shifts(dim_idx, reps[None, :], k0, k1)  # (2D, R)
+        zs = []
+        for f in (0, 1):
+            dims = torch.arange(D, device=device) * 2 + f
+            x = sobol_dims_u32_hilo(n, V[dims], base=base)           # (D, n)
+            if scramble == "owen":
+                xs = owen_scramble(x[:, None, :], keys[dims][:, :, None])
+            else:
+                xs = x[:, None, :] ^ shifts[dims][:, :, None]      # (D,R,n)
+            del x
+            pm, neg = pm_sign_from_words(xs.reshape(D, n_shifts * n))
+            del xs
+            g = ndtri_fast_pm(pm) if ndtri_mode == "fast" \
+                else -torch.special.ndtri(pm)
+            zs.append(torch.where(neg, -g, g))
+        return zs[0], zs[1]
 
 
 def qmc_increments_mxu(N: int, n: int, epoch, k0, k1, T, v_np=None,
@@ -240,13 +245,16 @@ def qmc_increments_mxu(N: int, n: int, epoch, k0, k1, T, v_np=None,
                        base: int = 0, ndtri_mode: str = "fast", *, device):
     """(N, n_shifts * n) increments (dW1, dW2) = sqrt(dt) A z of Sobol'
     points base..base+n-1 of each replicate: ``qmc_normals_mxu`` and one
-    float32 product per factor with ``bb_increment_matrix``."""
+    float32 product per factor with ``bb_increment_matrix``.  The span
+    ``prepare.bridge`` covers the matrix's upload, the two products and
+    the sqrt(dt) scaling."""
     z1, z2 = qmc_normals_mxu(N, n, epoch, k0, k1, v_np=v_np,
                              n_shifts=n_shifts, scramble=scramble,
                              base=base, ndtri_mode=ndtri_mode, device=device)
-    A = torch.from_numpy(bb_increment_matrix(N)).to(device)
-    sqrt_dt = sqrt_f32(_f32(T, device) / N)
-    return sqrt_dt * _matmul_f32(A, z1), sqrt_dt * _matmul_f32(A, z2)
+    with span("prepare.bridge"):
+        A = torch.from_numpy(bb_increment_matrix(N)).to(device)
+        sqrt_dt = sqrt_f32(_f32(T, device) / N)
+        return sqrt_dt * _matmul_f32(A, z1), sqrt_dt * _matmul_f32(A, z2)
 
 
 def _dyadic_refine(z_f: torch.Tensor, T_total, levels: int) -> torch.Tensor:

@@ -79,6 +79,54 @@ def test_compute_spans_under_a_cpu_profile(cls):
     _check_nested(rec, n0)
 
 
+def _qmc_pricer(device="cpu", cfg=TINY):
+    p = NMCH_FE(cfg, HestonParams(), engine="qmc", device=device)
+    p.init(1234)
+    return p
+
+
+def test_qmc_compute_spans_under_a_cpu_profile(monkeypatch):
+    """A QMC ``compute()`` records ``prepare.points`` and then
+    ``prepare.bridge`` inside ``prepare``; K6's wrapper is called in
+    ``prepare`` after both have closed (on a card its ``prepare.enqueue``
+    opens there); the records carry no counts (a reader takes the points
+    a call draws from n_paths)."""
+    import nmch_tpu_torch.ops.fe_qmc_cuda as fe_qmc_cuda
+    open_at_k6 = []
+
+    def k6(*args, **kw):
+        open_at_k6.append(timing._recorder.records[
+            timing._recorder.open].name)
+        return fe_qmc_cuda.qmc_payoff_sums_plain(*args, **kw)
+
+    monkeypatch.setattr(fe_qmc_cuda, "qmc_payoff_sums_cuda", k6)
+    p = _qmc_pricer()
+    n0 = len(spans())
+    with _cpu_profile():
+        p.compute()
+        p.compute()
+    rec = spans()
+    tree = _tree(rec, n0)
+    assert [(n, par) for n, par, _ in tree] == [
+        ("compute", None), ("prepare", "compute"),
+        ("prepare.points", "prepare"), ("prepare.bridge", "prepare")] * 2
+    assert open_at_k6 == ["prepare"] * 2
+    assert [r.counts for r in rec[n0:]] == [{}] * 8
+    _check_nested(rec, n0)
+
+
+def test_qmc_spans_change_no_answer():
+    """The same seed gives the same prices and CIs with the profiler on
+    and off, and off it records nothing."""
+    p, q = _qmc_pricer(), _qmc_pricer()
+    n0 = len(spans())
+    off = [(r.price, r.ci_error) for r in (p.compute() for _ in range(2))]
+    assert len(spans()) == n0
+    with _cpu_profile():
+        on = [(r.price, r.ci_error) for r in (q.compute() for _ in range(2))]
+    assert on == off and len(spans()) == n0 + 8
+
+
 def test_batched_moments_spans_under_a_cpu_profile():
     n0 = len(spans())
     with _cpu_profile():
@@ -260,3 +308,52 @@ def test_em_and_sweep_spans_on_the_card(dev):
         ("prepare", None), ("prepare.grid", "prepare"),
         ("prepare.copy_in", "prepare"), ("prepare.enqueue", "prepare")]
     _check_nested(rec, n0)
+
+
+@pytest.mark.cuda
+def test_qmc_ops_lie_under_their_spans_on_the_card(dev):
+    """Traced QMC calls at 8,192 paths x N = 100, the ops placed at their
+    launch records under the innermost span (``portbench/span_ops.py``):
+    K6 ``qmc_sim_paths`` and its second pass ``sum_partials`` alone,
+    once each a call, under ``prepare.enqueue``;
+    the two bridge products (matrix-multiply kernels) and the upload of
+    the bridge matrix under ``prepare.bridge``; under ``prepare.points``
+    the words, scrambles and normals, with no product and no K6."""
+    from portbench import span_ops
+    cfg = SimConfig(NTPB=128, NB=64, N=100)
+    p = _qmc_pricer(dev, cfg)
+    p.compute()
+    torch.cuda.synchronize()
+    n0 = len(spans())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            p.compute()
+        torch.cuda.synchronize()
+    rec = spans()[n0:]
+    cuda = torch.autograd.DeviceType.CUDA
+    ops, names, launches = [], {}, {}
+    for ev in prof.profiler.kineto_results.events():
+        s = _ns(ev, "start")
+        if ev.device_type() == cuda:
+            ops.append((s, s + _ns(ev, "duration"), ev.correlation_id()))
+            names[ev.correlation_id()] = ev.name()
+        elif ev.correlation_id():
+            launches[ev.correlation_id()] = s
+    ops.sort()
+    by_span = {}
+    for (_, _, corr), i in span_ops.innermost(ops, launches, rec):
+        by_span.setdefault(rec[i].name if i >= 0 else None,
+                           []).append(names[corr])
+    print({k: sorted(set(v)) for k, v in by_span.items()})
+    enq = by_span["prepare.enqueue"]
+    assert len(enq) == 6
+    assert sum("qmc_sim_paths" in n for n in enq) == 3
+    assert sum("sum_partials" in n for n in enq) == 3
+    for name, got in by_span.items():
+        if name != "prepare.enqueue":
+            assert not any("qmc_sim_paths" in n for n in got), name
+    gemm = [n for n in by_span["prepare.bridge"] if "gemm" in n.lower()]
+    assert len(gemm) >= 6, by_span["prepare.bridge"]
+    assert any("HtoD" in n for n in by_span["prepare.bridge"])
+    assert len(by_span["prepare.points"]) >= 3 * 20
+    assert not any("gemm" in n.lower() for n in by_span["prepare.points"])
